@@ -1,0 +1,164 @@
+"""Where the time of one full-width serving batch goes, on one CUDA card.
+
+    python -m imagined_speech_translation_tpu_torch.cli.profile_slice [--trace PATH]
+
+Builds the serving path as ``chip_smoke.py`` times it: ``default_config()``,
+random weights from seed 0, BatchNorm folded, bfloat16, 16 raw windows of
+125 channels, beam 3, decode length pinned to 16.  Prints
+
+- seconds per batch through ``build_decode_fn`` and through the encoder
+  alone (median of 5 after one warm-up; host clock around synchronized calls);
+- one batch under ``torch.profiler``: traced span (first host or device
+  event to last), kernel launches, device busy time (kernel and copy
+  intervals merged), the idle share of the span and of the unprofiled median
+  batch, and device time per kernel name, largest first.
+
+The batch's Chrome trace is written to ``--trace``.  The card's name and
+power limit (``nvidia-smi``) head the output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from imagined_speech_translation_tpu.config import default_config, replace_nested
+
+from ..data import ChineseCharTokenizer, RegionSpec
+from ..data.regions import ELECTRODE_REGIONS
+from ..frontend import SignalFrontend
+from ..models import build_model, fold_batch_norm
+from .serve import build_decode_fn
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def synthetic_vocab(size: int) -> list[str]:
+    """A BERT-layout vocab of ``size`` tokens: the special ids the decoder
+    uses, then CJK characters, then plain word pieces."""
+    special = ["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)] + [
+        "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    rest = [chr(0x4E00 + i) if i < 0x5200 else f"w{i}" for i in range(size - len(special))]
+    return special + rest
+
+
+def synthetic_montage(n_channels: int = 125) -> list[str]:
+    """``n_channels`` labels with the 48 region electrodes scattered among
+    auxiliary channels, as in a real montage."""
+    labels = [f"AUX{i}" for i in range(n_channels)]
+    mapped = [ch for region in ELECTRODE_REGIONS.values() for ch in region]
+    slots = sorted(np.random.default_rng(0).choice(n_channels, size=len(mapped), replace=False))
+    for slot, ch in zip(slots, mapped):
+        labels[slot] = ch
+    return labels
+
+
+def device_summary(trace_events: list[dict]) -> dict:
+    """Span, device busy time and per-kernel time from Chrome-trace events.
+
+    ``span_ms`` runs from the first event's start to the last event's end;
+    ``busy_ms`` is the union of the device intervals (kernels, copies,
+    memsets), so overlapping streams are not counted twice."""
+    spans = [e for e in trace_events if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in spans if e.get("cat") in DEVICE_CATEGORIES]
+    if not device:
+        raise RuntimeError("the trace holds no device activity: the profiler saw no kernel")
+    start = min(e["ts"] for e in spans)
+    span = max(e["ts"] + e["dur"] for e in spans) - start
+    busy, end = 0.0, -float("inf")
+    for e in sorted(device, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    per_name = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        per_name[e["name"]][0] += e["dur"]
+        per_name[e["name"]][1] += 1
+    return dict(
+        span_ms=span / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / span,
+        launches=sum(e.get("cat") == "kernel" for e in device),
+        by_name=sorted(((n, t / 1e3, c) for n, (t, c) in per_name.items()),
+                       key=lambda r: -r[1]),
+    )
+
+
+def median_seconds(fn, n: int = 5) -> tuple[float, list[float]]:
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), times
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default="build/profile/slice_trace.json",
+                    help="where to write the profiled batch's Chrome trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    cfg = default_config()
+    cfg = replace_nested(cfg, "generation.min_length", cfg.generation.max_length)
+    T, dev = cfg.data.n_timepoints, torch.device("cuda")
+    tok = ChineseCharTokenizer(synthetic_vocab(cfg.model.bart.vocab_size))
+    spec = RegionSpec.from_channel_names(synthetic_montage())
+    model = build_model(cfg.model, T, seed=0, device=dev)
+    decode_fn = build_decode_fn(cfg, tok, spec, model, device=dev, fold_bn=True,
+                                compute_dtype=torch.bfloat16)
+    windows = np.random.default_rng(1).normal(size=(16, 125, T)).astype(np.float32)
+
+    # the encoder alone, on the same folded bf16 weights and preprocessed input
+    enc_model = fold_batch_norm(model).to(torch.bfloat16).to(dev).eval()
+    R, C = spec.channel_mask.shape
+    mask = torch.as_tensor(spec.channel_mask, device=dev)
+    with torch.inference_mode():
+        clean = SignalFrontend(cfg.frontend).preprocess(torch.from_numpy(windows).to(dev))
+        stacked = clean[:, torch.as_tensor(spec.gather_indices.reshape(-1), device=dev)]
+        stacked = torch.where(mask[None, :, :, None], stacked.reshape(16, R, C, T), 0.0)
+        stacked = stacked.to(torch.bfloat16)
+        enc = lambda: enc_model.encode(stacked, mask)  # noqa: E731
+        enc()
+        enc_s, enc_all = median_seconds(enc)
+    del enc_model
+
+    decode_fn(windows)
+    batch_s, batch_all = median_seconds(lambda: decode_fn(windows))
+    print(f"batch {batch_s:.4f} s (median of 5: {[round(t, 4) for t in batch_all]}), "
+          f"{16 / batch_s:.2f} windows/s; encode {enc_s:.4f} s "
+          f"(median of 5: {[round(t, 4) for t in enc_all]})", flush=True)
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        decode_fn(windows)
+        torch.cuda.synchronize()
+    trace = Path(args.trace)
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    s = device_summary(json.loads(trace.read_text())["traceEvents"])
+    print(f"traced span {s['span_ms']:.1f} ms, {s['launches']} kernel launches, device busy "
+          f"{s['busy_ms']:.1f} ms, idle share {s['idle_share']:.3f} in the trace, "
+          f"{1 - s['busy_ms'] / (batch_s * 1e3):.3f} of the unprofiled batch (trace: {trace})")
+    for name, ms, count in s["by_name"][:15]:
+        print(f"  {ms:9.3f} ms  n={count:5d}  {name[:90]}")
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,8 @@
+"""Model library (eval mode): region encoder, brain encoder, BART decoder."""
+
+from .bart import BartDecoderModel, pseudo_encoder_sequence  # noqa: F401
+from .brain_encoder import BrainRegionEncoder  # noqa: F401
+from .eeg_model import EEGDecodingModel  # noqa: F401
+from .folding import fold_batch_norm  # noqa: F401
+from .init import build_model, init_parameters  # noqa: F401
+from .layers import MultiHeadAttention, RegionConvAttentionEncoder  # noqa: F401

@@ -1,0 +1,117 @@
+"""Cross-region fusion encoder (eval mode).
+
+Port of ``imagined_speech_translation_tpu.models.brain_encoder``: the four
+region encoders run as one batched :class:`RegionConvAttentionEncoder`, then
+multi-scale convs over the region axis, region embeddings, fusion layers,
+gated cross-region attention, region weighting and the final enhancer.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from imagined_speech_translation_tpu.config import BrainEncoderConfig
+
+from .layers import MultiHeadAttention, RegionConvAttentionEncoder, gelu
+
+
+class _FusionLayer(nn.Module):
+    """Pre-norm transformer encoder layer over the region axis."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_mult: int = 4):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = MultiHeadAttention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.ffn_fc1 = nn.Linear(dim, dim * ffn_mult)
+        self.ffn_fc2 = nn.Linear(dim * ffn_mult, dim)
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
+        return x + self.ffn_fc2(gelu(self.ffn_fc1(self.norm2(x))))
+
+
+class _Enhancer(nn.Module):
+    """Linear(h->2h) GELU Linear(2h->h) LayerNorm."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, dim * 2)
+        self.fc2 = nn.Linear(dim * 2, dim)
+        self.ln = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x):
+        return self.ln(self.fc2(gelu(self.fc1(x))))
+
+
+class BrainRegionEncoder(nn.Module):
+    """Stacked-region EEG ``(B, R, C, T)`` -> fused ``(B, hidden_dim)`` feature."""
+
+    def __init__(self, cfg: BrainEncoderConfig, *, in_channels: int, n_timepoints: int,
+                 n_regions: int = 4):
+        super().__init__()
+        self.cfg, self.n_regions = cfg, n_regions
+        h = cfg.hidden_dim
+        self.region_encoders = RegionConvAttentionEncoder(
+            cfg.region_encoder, h, n_regions=n_regions, in_channels=in_channels,
+            n_timepoints=n_timepoints,
+        )
+        for k in cfg.multi_scale_kernels:
+            self.add_module(f"temporal_scale_k{k}", nn.Conv1d(h, h, k, padding=k // 2))
+        self.diversity_projection_fc1 = nn.Linear(h * len(cfg.multi_scale_kernels), h * 2)
+        self.diversity_projection_fc2 = nn.Linear(h * 2, h)
+        self.diversity_projection_ln = nn.LayerNorm(h, eps=1e-5)
+        self.region_embeddings = nn.Parameter(torch.empty(n_regions, h))
+        self.feature_enhancer = _Enhancer(h)
+        if not cfg.disable_cross_region_attn:
+            for i in range(cfg.fusion_layers):
+                self.add_module(f"fusion_layer{i}", _FusionLayer(h, cfg.fusion_heads))
+            self.cross_region_attention = MultiHeadAttention(h, cfg.cross_region_heads)
+        if not cfg.uniform_region_weight:
+            self.region_importance = nn.Parameter(torch.empty(n_regions))
+            self.region_gate_fc1 = nn.Linear(h, h // 2)
+            self.region_gate_fc2 = nn.Linear(h // 2, n_regions)
+
+    def forward(self, eeg, channel_mask=None):
+        """``eeg``: (B, R, C, T); ``channel_mask``: (R, C) bool."""
+        cfg = self.cfg
+        if channel_mask is not None:
+            mask = torch.as_tensor(channel_mask, device=eeg.device)
+            eeg = torch.where(mask[None, :, :, None], eeg, 0.0)
+
+        feats = self.region_encoders(eeg).transpose(0, 1)  # (B, R, h)
+
+        # multi-scale convs over the region axis: (B, h, R) channel-first
+        fr = feats.transpose(1, 2)
+        ms = torch.cat(
+            [gelu(getattr(self, f"temporal_scale_k{k}")(fr)).mean(dim=-1)
+             for k in cfg.multi_scale_kernels],
+            dim=-1,
+        )
+        y = gelu(self.diversity_projection_fc1(ms))
+        y = self.diversity_projection_ln(self.diversity_projection_fc2(y))
+        x = feats + cfg.multi_scale_weight * y[:, None, :]
+        x = x + cfg.region_embed_weight * self.region_embeddings[None]
+
+        if not cfg.disable_cross_region_attn:
+            for i in range(cfg.fusion_layers):
+                x = getattr(self, f"fusion_layer{i}")(x)
+            cross = self.cross_region_attention(x)
+            gate = torch.sigmoid(self.feature_enhancer(x.mean(dim=1)))
+            x = x + gate[:, None, :] * cross
+
+        if cfg.uniform_region_weight:
+            fused = x.mean(dim=1)
+        else:
+            g = gelu(self.region_gate_fc1(x.mean(dim=1)))
+            dynamic = torch.sigmoid(self.region_gate_fc2(g))
+            static = torch.softmax(self.region_importance, dim=0)
+            combined = torch.softmax(
+                cfg.static_weight_frac * static[None]
+                + (1.0 - cfg.static_weight_frac) * dynamic,
+                dim=1,
+            )
+            fused = (x * combined[..., None]).sum(dim=1)
+
+        return fused + cfg.enhancer_weight * self.feature_enhancer(fused)
