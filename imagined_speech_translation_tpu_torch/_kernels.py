@@ -1,10 +1,11 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface.  On first use they are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library under
-``build/kernels/`` at the repository root (named by a hash of the sources, so
-an edit rebuilds), and loaded with ``ctypes``.  Nothing here runs at import:
-the CPU tests import every module on a machine without ``nvcc``.
+The sources under ``csrc/`` have a plain C interface.  On first use each is
+compiled with ``nvcc`` for Hopper (``sm_90a``), all at once in parallel, and
+linked into one shared library under ``build/kernels/`` at the repository
+root (named by a hash of the sources and headers, so an edit rebuilds), and
+loaded with ``ctypes``.  Nothing here runs at import: the CPU tests import
+every module on a machine without ``nvcc``.
 
 Each :class:`Kernel` keeps a plain launch counter.  A wrapper calls
 :meth:`Kernel.launch`, which calls the C entry point, raises if the launch
@@ -23,10 +24,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("sosfilt.cu", "flash_fwd.cu")
+SOURCES = ("sosfilt.cu", "flash_fwd.cu", "flash_bwd.cu", "dropout_mask.cu")
+HEADERS = ("dropout_mask.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,7 +36,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ist_sosfilt_f32": [_P, _P, _I, _I, _P, _I, _P],
     "ist_sosfilt_max_sections": [],
-    "ist_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "ist_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
+                      _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _P],
+    "ist_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+                      ctypes.c_float, _I, _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _P],
+    "ist_dropout_mask": [_P, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _P],
 }
 
 _lock = threading.Lock()
@@ -55,30 +61,49 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def _build(so: Path, tag: str) -> str:
+    """Compile every source to an object file, one ``nvcc`` each, all
+    started together, then link them into ``so``; returns the compiler
+    output (``-Xptxas -v`` register and spill lines included)."""
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{Path(name).stem}{tag}.o" for name in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(SOURCES, objs)
+    ]
+    logs = [f"--- {name}\n{p.communicate()[0]}" for name, p in zip(SOURCES, procs)]
+    log = "".join(logs)
+    failed = [name for name, p in zip(SOURCES, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = so.with_suffix(f"{tag}.tmp")
+    link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    os.replace(tmp, so)
+    for obj in objs:
+        obj.unlink()
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     global _lib, build_log, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
-        paths = [CSRC / s for s in SOURCES]
         digest = hashlib.sha256()
-        for p in paths:
-            digest.update(p.read_bytes())
+        for name in SOURCES + HEADERS:
+            digest.update((CSRC / name).read_bytes())
         so = BUILD_DIR / f"libist_kernels-{digest.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)],
-                capture_output=True, text=True,
-            )
+            build_log = _build(so, f".{os.getpid()}")
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -119,7 +144,17 @@ FLASH_FWD = Kernel(
     "imagined_speech_translation_tpu_torch/csrc/flash_fwd.cu",
     "imagined_speech_translation_tpu/ops/pallas_attention.py:153",
 )
-KERNELS = (SOSFILT, FLASH_FWD)
+FLASH_BWD = Kernel(
+    "flash_bwd", "ist_flash_bwd",
+    "imagined_speech_translation_tpu_torch/csrc/flash_bwd.cu",
+    "imagined_speech_translation_tpu/ops/pallas_attention.py:273",
+)
+DROPOUT_MASK = Kernel(
+    "dropout_mask", "ist_dropout_mask",
+    "imagined_speech_translation_tpu_torch/csrc/dropout_mask.cu",
+    "tools/tpu_kernel_check.py:190",
+)
+KERNELS = (SOSFILT, FLASH_FWD, FLASH_BWD, DROPOUT_MASK)
 
 
 def reset_launch_counts() -> None:

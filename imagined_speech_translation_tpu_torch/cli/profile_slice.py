@@ -1,20 +1,28 @@
-"""Where the time of one full-width serving batch goes, on one CUDA card.
+"""Where the time of one full-width serving batch, or of one training step,
+goes on one CUDA card.
 
-    python -m imagined_speech_translation_tpu_torch.cli.profile_slice [--trace PATH]
+    python -m imagined_speech_translation_tpu_torch.cli.profile_slice \
+        [--what serve|train] [--trace PATH]
 
-Builds the serving path as ``chip_smoke.py`` times it: ``default_config()``,
-random weights from seed 0, BatchNorm folded, bfloat16, 16 raw windows of
-125 channels, beam 3, decode length pinned to 16.  Prints
+``--what serve`` (the default) builds the serving path as ``chip_smoke.py``
+times it: ``default_config()``, random weights from seed 0, BatchNorm
+folded, bfloat16, 16 raw windows of 125 channels, beam 3, decode length
+pinned to 16.  It prints seconds per batch through ``build_decode_fn`` and
+through the encoder alone (median of 5 after one warm-up; host clock around
+synchronized calls).
 
-- seconds per batch through ``build_decode_fn`` and through the encoder
-  alone (median of 5 after one warm-up; host clock around synchronized calls);
-- one batch under ``torch.profiler``: traced span (first host or device
-  event to last), kernel launches, device busy time (kernel and copy
-  intervals merged), the idle share of the span and of the unprofiled median
-  batch, and device time per kernel name, largest first.
+``--what train`` builds the default training step as ``chip_smoke.py`` runs
+it: ``default_config()`` with its composite loss, mixed precision and fused
+AdamW, random weights from seed 0, one synthetic window batch of 8
+micro-steps x 4 windows at T = 1651 (labels of 16 tokens).  It prints
+seconds per optimizer step (median of 3 after one warm-up) and windows/s.
 
-The batch's Chrome trace is written to ``--trace``.  The card's name and
-power limit (``nvidia-smi``) head the output.
+Then one batch (or step) runs under ``torch.profiler``: traced span (first
+host or device event to last), kernel launches, device busy time (kernel and
+copy intervals merged), the idle share of the span and of the unprofiled
+median, and device time per kernel name, largest first.  Its Chrome trace is
+written to ``--trace``.  The card's name and power limit (``nvidia-smi``)
+head the output.
 """
 
 from __future__ import annotations
@@ -29,12 +37,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from imagined_speech_translation_tpu.config import default_config, replace_nested
-
+from ..config import default_config, replace_nested
 from ..data import ChineseCharTokenizer, RegionSpec
 from ..data.regions import ELECTRODE_REGIONS
 from ..frontend import SignalFrontend
 from ..models import build_model, fold_batch_norm
+from ..training import (
+    AdaptiveLossScheduler,
+    FusedAdamW,
+    build_train_module,
+    create_train_state,
+    get_top_k_vocab_indices,
+    make_train_step,
+)
 from .serve import build_decode_fn
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -58,6 +73,27 @@ def synthetic_montage(n_channels: int = 125) -> list[str]:
     for slot, ch in zip(slots, mapped):
         labels[slot] = ch
     return labels
+
+
+def synthetic_train_batch(cfg, accum: int, batch: int, length: int, seed: int):
+    """A window batch ``(accum, batch, ...)`` made with numpy: EEG at
+    ``cfg.data.n_timepoints`` on the padded region channels, decoder inputs
+    and next-token labels over the vocabulary's content ids, the second
+    window's labels padded with -100 after 12 tokens."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((len(cfg.model.region_channel_counts), cfg.model.max_region_channels), bool)
+    for r, n in enumerate(cfg.model.region_channel_counts):
+        mask[r, :n] = True
+    eeg = rng.normal(size=(accum, batch) + mask.shape + (cfg.data.n_timepoints,))
+    ids = rng.integers(105, cfg.model.bart.vocab_size, (accum, batch, length + 1))
+    attn = np.ones((accum, batch, length), np.int32)
+    labels = ids[..., 1:].copy()
+    attn[:, 1, 12:] = 0
+    labels[:, 1, 12:] = -100
+    arrays = dict(eeg=(eeg * mask[..., None]).astype(np.float32),
+                  decoder_input_ids=ids[..., :-1], labels=labels, attention_mask=attn,
+                  channel_mask=mask)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
 
 
 def device_summary(trace_events: list[dict]) -> dict:
@@ -89,6 +125,42 @@ def device_summary(trace_events: list[dict]) -> dict:
     )
 
 
+def print_profile(fn, trace: Path, unprofiled_s: float) -> None:
+    """Run ``fn`` once under ``torch.profiler`` and print its device summary."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    s = device_summary(json.loads(trace.read_text())["traceEvents"])
+    print(f"traced span {s['span_ms']:.1f} ms, {s['launches']} kernel launches, device busy "
+          f"{s['busy_ms']:.1f} ms, idle share {s['idle_share']:.3f} in the trace, "
+          f"{1 - s['busy_ms'] / (unprofiled_s * 1e3):.3f} of the unprofiled run (trace: {trace})")
+    for name, ms, count in s["by_name"][:20]:
+        print(f"  {ms:9.3f} ms  n={count:5d}  {name[:90]}")
+
+
+def profile_train(dev: torch.device, trace: Path) -> None:
+    cfg = default_config()
+    tc = cfg.training
+    tok = ChineseCharTokenizer(synthetic_vocab(cfg.model.bart.vocab_size))
+    bow = get_top_k_vocab_indices(tok, tc.loss.bow_vocab_size)
+    module = build_train_module(cfg, len(bow), seed=0, device=dev)
+    opt = FusedAdamW([n for n, _ in module.named_parameters()], tc.optimizer, total_steps=10)
+    state = create_train_state(module, opt, AdaptiveLossScheduler(tc.loss).initial_weights())
+    step_fn = make_train_step(module, opt, cfg, bow)
+    batch = {k: v.to(dev) for k, v in synthetic_train_batch(
+        cfg, tc.grad_accum_steps, tc.batch_size, cfg.data.max_length, 100).items()}
+    step = lambda: step_fn(state, batch, torch.Generator().manual_seed(state.step))  # noqa: E731
+    step()
+    step_s, step_all = median_seconds(step, n=3)
+    windows = tc.grad_accum_steps * tc.batch_size
+    print(f"train step {step_s:.4f} s (median of 3: {[round(t, 4) for t in step_all]}), "
+          f"{windows / step_s:.2f} windows/s", flush=True)
+    print_profile(step, trace, step_s)
+
+
 def median_seconds(fn, n: int = 5) -> tuple[float, list[float]]:
     times = []
     for _ in range(n):
@@ -102,9 +174,12 @@ def median_seconds(fn, n: int = 5) -> tuple[float, list[float]]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--trace", default="build/profile/slice_trace.json",
-                    help="where to write the profiled batch's Chrome trace")
+    ap.add_argument("--what", choices=("serve", "train"), default="serve",
+                    help="a serving batch or a training step")
+    ap.add_argument("--trace", default=None,
+                    help="where to write the Chrome trace (build/profile/<what>_trace.json)")
     args = ap.parse_args(argv)
+    trace = Path(args.trace or f"build/profile/{args.what}_trace.json")
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA card")
     smi = subprocess.run(
@@ -112,6 +187,10 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if args.what == "train":
+        profile_train(torch.device("cuda"), trace)
+        print(smi, flush=True)
+        return 0
 
     cfg = default_config()
     cfg = replace_nested(cfg, "generation.min_length", cfg.generation.max_length)
@@ -143,19 +222,7 @@ def main(argv=None) -> int:
           f"{16 / batch_s:.2f} windows/s; encode {enc_s:.4f} s "
           f"(median of 5: {[round(t, 4) for t in enc_all]})", flush=True)
 
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        decode_fn(windows)
-        torch.cuda.synchronize()
-    trace = Path(args.trace)
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    s = device_summary(json.loads(trace.read_text())["traceEvents"])
-    print(f"traced span {s['span_ms']:.1f} ms, {s['launches']} kernel launches, device busy "
-          f"{s['busy_ms']:.1f} ms, idle share {s['idle_share']:.3f} in the trace, "
-          f"{1 - s['busy_ms'] / (batch_s * 1e3):.3f} of the unprofiled batch (trace: {trace})")
-    for name, ms, count in s["by_name"][:15]:
-        print(f"  {ms:9.3f} ms  n={count:5d}  {name[:90]}")
+    print_profile(lambda: decode_fn(windows), trace, batch_s)
     print(smi, flush=True)
     return 0
 

@@ -16,7 +16,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from imagined_speech_translation_tpu.config import Config, default_config, replace_nested
+from ..config import Config, default_config, replace_nested
 
 from ..data import ChineseCharTokenizer, RegionSpec, load_montage
 from ..decode import DecodeParams, build_generate_fn

@@ -1,9 +1,13 @@
 """Flax variables of the JAX package -> the port's ``state_dict``.
 
-The input is the JAX model's variables as a nested dict of arrays (numpy, or
+The input is a JAX module's variables as a nested dict of arrays (numpy, or
 anything ``np.asarray`` takes) with the collections ``params`` and
-``batch_stats``.  The port's modules carry the flax names, so a leaf's path
-is its key; only the leaf and the layout change:
+``batch_stats``: the ``EEGDecodingModel``'s or one of its submodules', or the
+training ``TrainModule``'s, whose trees nest them under ``model`` and
+``loss_heads`` (``params.model.*``, ``params.loss_heads.*``,
+``batch_stats.model.*``) as the port's ``training.TrainModule`` does.  The
+port's modules carry the flax names, so a leaf's path is its key; only the
+leaf and the layout change:
 
 * Dense ``kernel (…, in, out)`` -> ``weight (…, out, in)``;
 * Conv ``kernel (…, k, in/g, out)`` -> ``weight (…, out, in/g, k)``;

@@ -1,5 +1,6 @@
-// Unmasked attention forward with an online softmax (FlashAttention style),
-// dropout-free, over (bh, S, d) tensors in float32 or bfloat16.
+// Unmasked attention forward with an online softmax (FlashAttention style)
+// and optional attention-probability dropout, over (bh, S, d) tensors in
+// float32 or bfloat16.
 //
 // Replaces: imagined_speech_translation_tpu/ops/pallas_attention.py:_fwd_kernel
 // (called by _fwd_call, _flash_core and flash_attention): the region encoders'
@@ -27,8 +28,16 @@
 // the block's limit first).  The online softmax runs in f32 with exp2f on
 // scores scaled by scale*log2(e); keys >= s_kv score -1e30 and padded V rows
 // are zero, as in the TPU kernel.  The output is written in the input dtype,
-// and the base-2 logsumexp (m + log2 l) as float32 (bh, s_q) for a later
+// and the base-2 logsumexp (m + log2 l) as float32 (bh, s_q) for the
 // backward.
+//
+// Dropout (training): after the online-softmax update each probability is
+// replaced by keep ? p / (1 - rate) : 0 before it enters P.V, while the row
+// sum l (and so lse) keeps the undropped p, as the TPU kernel does.  The keep
+// bit of element (bh, row, col) comes from dropout_mask.cuh, a hash of the
+// seed and the element's place in flash_attention's logical tiles, so the
+// backward kernel regenerates the same mask without storing it.  The seed is
+// a kernel argument drawn on the host.
 //
 // The CUDA-core variant: 256 threads; Q, K, V and the probability tile in
 // shared memory as float32 (bf16 widened on load); each thread owns a
@@ -41,6 +50,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "dropout_mask.cuh"
 
 namespace {
 
@@ -65,7 +76,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int s_q, int s_kv, int d,
-                     float qscale) {
+                     float qscale, DropoutMask drop) {
   constexpr int RPT = kBQ / 16;   // query rows per thread
   constexpr int CPT = BK / 16;    // key columns per thread
   constexpr int DPT = DMAX / 16;  // output columns per thread
@@ -152,9 +163,12 @@ __global__ void __launch_bounds__(kThreads)
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
+        float p = exp2f(s[i][j] - m_new);
+        rs += p;  // the normalizer sums the undropped probabilities
+        if (drop.on)
+          p = dropout_keep(drop, bh, q0 + ty + 16 * i, k0 + tx + 16 * j) ? p * drop.inv_keep
+                                                                         : 0.f;
         ps[(ty + 16 * i) * pld + tx + 16 * j] = p;
-        rs += p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -198,7 +212,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int DMAX, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bh, int s_q, int s_kv, int d, float qscale, cudaStream_t stream) {
+           int bh, int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<BK>(d);
   auto kernel = flash_fwd_kernel<T, DMAX, BK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -207,7 +222,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid(bh, (s_q + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, s_q, s_kv, d, qscale);
+      static_cast<T*>(o), lse, s_q, s_kv, d, qscale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -268,7 +283,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int s_q, int s_kv, int d, float qscale) {
+                         float* __restrict__ lse, int s_q, int s_kv, int d, float qscale,
+                         DropoutMask drop) {
   constexpr int NS = BK / 8;    // score n-tiles of 8 keys
   constexpr int NO = DMAX / 8;  // output n-tiles of 8 dims
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -366,9 +382,13 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e >> 1]);
+        float p = exp2f(s[n][e] - m[e >> 1]);
+        l[e >> 1] += p;  // the normalizer sums the undropped probabilities
+        if (drop.on)
+          p = dropout_keep(drop, bh, q0 + wrow + g + 8 * (e >> 1), k0 + n * 8 + 2 * t + (e & 1))
+                  ? p * drop.inv_keep
+                  : 0.f;
         s[n][e] = p;
-        l[e >> 1] += p;
       }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -420,7 +440,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 template <int DMAX, int BK>
 int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-               int s_q, int s_kv, int d, float qscale, cudaStream_t stream) {
+               int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
+               cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<BK>(d);
   auto kernel = flash_fwd_mma_kernel<DMAX, BK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -430,7 +451,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, s_q, s_kv,
-      d, qscale);
+      d, qscale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,19 +459,21 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int bh, int s_q, int s_kv, int d, float qscale, cudaStream_t stream) {
-  if (d <= 64) return launch<T, 64, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, stream);
-  if (d <= 128) return launch<T, 128, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, stream);
-  return launch<T, 256, 32>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, stream);
+             int bh, int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
+             cudaStream_t st) {
+  if (d <= 64) return launch<T, 64, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (d <= 128) return launch<T, 128, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  return launch<T, 256, 32>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
 }
 
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                  int s_q, int s_kv, int d, float qscale, cudaStream_t stream) {
+                  int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
+                  cudaStream_t st) {
   if (d % 16 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, stream);
-  if (d <= 64) return launch_mma<64, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, stream);
-  if (d <= 128) return launch_mma<128, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, stream);
-  return launch_mma<256, 32>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, stream);
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (d <= 64) return launch_mma<64, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (d <= 128) return launch_mma<128, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  return launch_mma<256, 32>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
 }
 
 }  // namespace
@@ -459,17 +482,21 @@ extern "C" {
 
 // q: (bh, s_q, d); k, v: (bh, s_kv, d); o: (bh, s_q, d), all contiguous on the
 // device in one dtype (0 = float32, 1 = bfloat16).  lse: float32 (bh, s_q).
-// qscale = softmax scale * log2(e).  Returns the cudaError_t of the launch.
+// qscale = softmax scale * log2(e).  Dropout: dropout != 0 applies the keep
+// mask of dropout_mask.cuh for (seed, threshold, block_q, block_k) and scales
+// kept probabilities by inv_keep.  Returns the cudaError_t of the launch.
 int ist_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                  int bh, int s_q, int s_kv, int d, float qscale, int dtype,
+                  int bh, int s_q, int s_kv, int d, float qscale, int dtype, int dropout,
+                  int seed, unsigned threshold, int block_q, int block_k, float inv_keep,
                   void* stream) {
   if (bh < 1 || s_q < 1 || s_kv < 1 || d < 1 || d > 256 ||
-      (s_q + kBQ - 1) / kBQ > 65535) {
+      (s_q + kBQ - 1) / kBQ > 65535 || (dropout && (block_q < 1 || block_k < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, st);
-  if (dtype == 1) return dispatch_bf16(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, st);
+  const DropoutMask drop = make_dropout_mask(dropout, seed, threshold, block_q, block_k, inv_keep);
+  if (dtype == 0) return dispatch<float>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (dtype == 1) return dispatch_bf16(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

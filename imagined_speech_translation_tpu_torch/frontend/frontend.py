@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from imagined_speech_translation_tpu.config import FrontendConfig
+from ..config import FrontendConfig
 
 from .filters import design_bandpass, design_notch, sosfilt
 

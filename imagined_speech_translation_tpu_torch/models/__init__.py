@@ -1,4 +1,4 @@
-"""Model library (eval mode): region encoder, brain encoder, BART decoder."""
+"""Model library: region encoder, brain encoder, BART decoder, assembled model."""
 
 from .bart import BartDecoderModel, pseudo_encoder_sequence  # noqa: F401
 from .brain_encoder import BrainRegionEncoder  # noqa: F401

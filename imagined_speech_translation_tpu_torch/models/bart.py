@@ -1,4 +1,4 @@
-"""BART decoder (``fnlp/bart-base-chinese`` family), eval mode.
+"""BART decoder (``fnlp/bart-base-chinese`` family).
 
 Port of ``imagined_speech_translation_tpu.models.bart``: shared token
 embedding, learned positions (offset 2), ``layernorm_embedding``, post-norm
@@ -7,6 +7,11 @@ keeps a fixed-size KV cache per layer (``init_cache``) written in place at
 ``index``.  The EEG pseudo-encoder is a tiled sequence, so cross-attention
 over it is the identity on V: ``cross_attn_const`` hoists it out of the decode
 loop as one ``out_proj(v_proj(vec))`` per layer.
+
+The teacher-forced path also trains: with a ``generator`` the embedding,
+residual and FFN activations drop out at ``cfg.dropout`` and attention
+probabilities at ``cfg.attention_dropout``, as the JAX module does with
+``train=True``; ``return_hidden`` also returns the last decoder states.
 """
 
 from __future__ import annotations
@@ -15,9 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imagined_speech_translation_tpu.config import BartConfig
-
-from ..ops import dot_product_attention
+from ..config import BartConfig
+from ..ops import dot_product_attention, dropout
 
 
 def pseudo_encoder_sequence(proj_eeg: torch.Tensor, length: int) -> torch.Tensor:
@@ -28,9 +32,9 @@ def pseudo_encoder_sequence(proj_eeg: torch.Tensor, length: int) -> torch.Tensor
 class _BartAttention(nn.Module):
     """HF ``BartAttention`` with an optional in-place KV cache."""
 
-    def __init__(self, d: int, num_heads: int):
+    def __init__(self, d: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
-        self.d, self.num_heads = d, num_heads
+        self.d, self.num_heads, self.dropout = d, num_heads, dropout
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d)
         self.v_proj = nn.Linear(d, d)
@@ -45,7 +49,7 @@ class _BartAttention(nn.Module):
         (B, d): softmax weights are uniform, so attention returns v itself."""
         return self.out_proj(self.v_proj(vec))
 
-    def forward(self, x, kv=None, mask=None, *, cache=None):
+    def forward(self, x, kv=None, mask=None, *, cache=None, generator=None):
         kv = x if kv is None else kv
         q = self._split(self.q_proj(x))
         k = self._split(self.k_proj(kv))
@@ -56,7 +60,10 @@ class _BartAttention(nn.Module):
             cache["v"][:, :, idx : idx + v.shape[2]] = v
             cache["index"] = idx + x.shape[1]
             k, v = cache["k"], cache["v"]
-        out = dot_product_attention(q, k, v, mask=mask)
+        out = dot_product_attention(
+            q, k, v, mask=mask, dropout_rate=self.dropout if generator is not None else 0.0,
+            generator=generator,
+        )
         return self.out_proj(out.transpose(1, 2).reshape(x.shape[:-1] + (self.d,)))
 
 
@@ -66,31 +73,37 @@ class _BartDecoderLayer(nn.Module):
     def __init__(self, cfg: BartConfig):
         super().__init__()
         d = cfg.d_model
-        self.self_attn = _BartAttention(d, cfg.num_heads)
+        self.dropout = cfg.dropout
+        self.self_attn = _BartAttention(d, cfg.num_heads, cfg.attention_dropout)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
-        self.encoder_attn = _BartAttention(d, cfg.num_heads)
+        self.encoder_attn = _BartAttention(d, cfg.num_heads, cfg.attention_dropout)
         self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
         self.fc1 = nn.Linear(d, cfg.ffn_dim)
         self.fc2 = nn.Linear(cfg.ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
 
     def forward(self, x, encoder_hidden, self_mask, cross_mask=None, *, cache=None,
-                cross_const=None):
-        x = self.self_attn_layer_norm(x + self.self_attn(x, mask=self_mask, cache=cache))
+                cross_const=None, generator=None):
+        def drop(t):
+            return dropout(t, self.dropout, generator)
+
+        a = self.self_attn(x, mask=self_mask, cache=cache, generator=generator)
+        x = self.self_attn_layer_norm(x + drop(a))
         if cross_const is not None:
             a = cross_const[:, None, :]
         else:
-            a = self.encoder_attn(x, kv=encoder_hidden, mask=cross_mask)
-        x = self.encoder_attn_layer_norm(x + a)
-        f = self.fc2(F.gelu(self.fc1(x)))  # BART's exact (erf) GELU
-        return self.final_layer_norm(x + f)
+            a = self.encoder_attn(x, kv=encoder_hidden, mask=cross_mask, generator=generator)
+        x = self.encoder_attn_layer_norm(x + drop(a))
+        f = self.fc2(drop(F.gelu(self.fc1(x))))  # BART's exact (erf) GELU
+        return self.final_layer_norm(x + drop(f))
 
 
 class BartDecoderModel(nn.Module):
     """Decoder + tied lm_head.  Full-sequence mode: ``caches=None``, causal
     mask.  Incremental mode: 1-token inputs with explicit ``positions``,
     ``caches`` from :meth:`init_cache`, and ``cross_consts`` from
-    :meth:`cross_attn_const`."""
+    :meth:`cross_attn_const`.  With a ``generator`` (train mode) the
+    full-sequence mode applies the JAX module's dropouts."""
 
     def __init__(self, cfg: BartConfig):
         super().__init__()
@@ -116,7 +129,7 @@ class BartDecoderModel(nn.Module):
 
     def forward(self, decoder_input_ids, encoder_hidden_states=None,
                 encoder_attention_mask=None, *, positions=None, caches=None,
-                cross_consts=None):
+                cross_consts=None, generator=None, return_hidden=False):
         cfg = self.cfg
         b, l = decoder_input_ids.shape
         if encoder_hidden_states is None and cross_consts is None:
@@ -128,6 +141,7 @@ class BartDecoderModel(nn.Module):
         if positions is None:
             positions = torch.arange(l, device=dev)[None].expand(b, l)
         x = self.layernorm_embedding(x + self.embed_positions[positions + cfg.position_offset])
+        x = dropout(x, cfg.dropout, generator)
 
         if caches is None:
             i = torch.arange(l, device=dev)
@@ -145,8 +159,10 @@ class BartDecoderModel(nn.Module):
                 x, encoder_hidden_states, self_mask, cross_mask,
                 cache=None if caches is None else caches[li],
                 cross_const=None if cross_consts is None else cross_consts[li],
+                generator=generator,
             )
-        return F.linear(x, self.shared.weight) + self.final_logits_bias
+        logits = F.linear(x, self.shared.weight) + self.final_logits_bias
+        return (logits, x) if return_hidden else logits
 
     def init_cache(self, batch: int, max_length: int, dtype=torch.float32, device=None):
         hd = self.cfg.d_model // self.cfg.num_heads

@@ -1,9 +1,11 @@
-"""Cross-region fusion encoder (eval mode).
+"""Cross-region fusion encoder.
 
 Port of ``imagined_speech_translation_tpu.models.brain_encoder``: the four
 region encoders run as one batched :class:`RegionConvAttentionEncoder`, then
 multi-scale convs over the region axis, region embeddings, fusion layers,
-gated cross-region attention, region weighting and the final enhancer.
+gated cross-region attention, region weighting and the final enhancer.  In
+train mode every dropout of the JAX module draws from the ``generator``
+passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -11,38 +13,42 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from imagined_speech_translation_tpu.config import BrainEncoderConfig
-
+from ..config import BrainEncoderConfig
+from ..ops import dropout
 from .layers import MultiHeadAttention, RegionConvAttentionEncoder, gelu
 
 
 class _FusionLayer(nn.Module):
     """Pre-norm transformer encoder layer over the region axis."""
 
-    def __init__(self, dim: int, num_heads: int, ffn_mult: int = 4):
+    def __init__(self, dim: int, num_heads: int, ffn_mult: int = 4, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = MultiHeadAttention(dim, num_heads)
+        self.attn = MultiHeadAttention(dim, num_heads, dropout=dropout)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.ffn_fc1 = nn.Linear(dim, dim * ffn_mult)
         self.ffn_fc2 = nn.Linear(dim * ffn_mult, dim)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.ffn_fc2(gelu(self.ffn_fc1(self.norm2(x))))
+    def forward(self, x, generator=None):
+        rate = self.dropout
+        x = x + dropout(self.attn(self.norm1(x), generator=generator), rate, generator)
+        f = dropout(gelu(self.ffn_fc1(self.norm2(x))), rate, generator)
+        return x + dropout(self.ffn_fc2(f), rate, generator)
 
 
 class _Enhancer(nn.Module):
-    """Linear(h->2h) GELU Linear(2h->h) LayerNorm."""
+    """Linear(h->2h) GELU Dropout Linear(2h->h) LayerNorm."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.fc1 = nn.Linear(dim, dim * 2)
         self.fc2 = nn.Linear(dim * 2, dim)
         self.ln = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x):
-        return self.ln(self.fc2(gelu(self.fc1(x))))
+    def forward(self, x, generator=None):
+        return self.ln(self.fc2(dropout(gelu(self.fc1(x)), self.dropout, generator)))
 
 
 class BrainRegionEncoder(nn.Module):
@@ -67,20 +73,22 @@ class BrainRegionEncoder(nn.Module):
         if not cfg.disable_cross_region_attn:
             for i in range(cfg.fusion_layers):
                 self.add_module(f"fusion_layer{i}", _FusionLayer(h, cfg.fusion_heads))
-            self.cross_region_attention = MultiHeadAttention(h, cfg.cross_region_heads)
+            self.cross_region_attention = MultiHeadAttention(h, cfg.cross_region_heads,
+                                                             dropout=0.1)
         if not cfg.uniform_region_weight:
             self.region_importance = nn.Parameter(torch.empty(n_regions))
             self.region_gate_fc1 = nn.Linear(h, h // 2)
             self.region_gate_fc2 = nn.Linear(h // 2, n_regions)
 
-    def forward(self, eeg, channel_mask=None):
-        """``eeg``: (B, R, C, T); ``channel_mask``: (R, C) bool."""
+    def forward(self, eeg, channel_mask=None, generator=None):
+        """``eeg``: (B, R, C, T); ``channel_mask``: (R, C) bool;
+        ``generator``: the dropout stream in train mode, ``None`` in eval."""
         cfg = self.cfg
         if channel_mask is not None:
             mask = torch.as_tensor(channel_mask, device=eeg.device)
             eeg = torch.where(mask[None, :, :, None], eeg, 0.0)
 
-        feats = self.region_encoders(eeg).transpose(0, 1)  # (B, R, h)
+        feats = self.region_encoders(eeg, generator).transpose(0, 1)  # (B, R, h)
 
         # multi-scale convs over the region axis: (B, h, R) channel-first
         fr = feats.transpose(1, 2)
@@ -89,22 +97,22 @@ class BrainRegionEncoder(nn.Module):
              for k in cfg.multi_scale_kernels],
             dim=-1,
         )
-        y = gelu(self.diversity_projection_fc1(ms))
+        y = dropout(gelu(self.diversity_projection_fc1(ms)), 0.1, generator)
         y = self.diversity_projection_ln(self.diversity_projection_fc2(y))
         x = feats + cfg.multi_scale_weight * y[:, None, :]
         x = x + cfg.region_embed_weight * self.region_embeddings[None]
 
         if not cfg.disable_cross_region_attn:
             for i in range(cfg.fusion_layers):
-                x = getattr(self, f"fusion_layer{i}")(x)
-            cross = self.cross_region_attention(x)
-            gate = torch.sigmoid(self.feature_enhancer(x.mean(dim=1)))
+                x = getattr(self, f"fusion_layer{i}")(x, generator)
+            cross = self.cross_region_attention(x, generator=generator)
+            gate = torch.sigmoid(self.feature_enhancer(x.mean(dim=1), generator))
             x = x + gate[:, None, :] * cross
 
         if cfg.uniform_region_weight:
             fused = x.mean(dim=1)
         else:
-            g = gelu(self.region_gate_fc1(x.mean(dim=1)))
+            g = dropout(gelu(self.region_gate_fc1(x.mean(dim=1))), 0.1, generator)
             dynamic = torch.sigmoid(self.region_gate_fc2(g))
             static = torch.softmax(self.region_importance, dim=0)
             combined = torch.softmax(
@@ -114,4 +122,4 @@ class BrainRegionEncoder(nn.Module):
             )
             fused = (x * combined[..., None]).sum(dim=1)
 
-        return fused + cfg.enhancer_weight * self.feature_enhancer(fused)
+        return fused + cfg.enhancer_weight * self.feature_enhancer(fused, generator)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from imagined_speech_translation_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from .eeg_model import EEGDecodingModel
 from .layers import RegionConv, RegionLayerNorm, RegionLinear, RegionNorm
@@ -56,9 +56,10 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
 
 
 def build_model(cfg: ModelConfig, n_timepoints: int, *, seed: int,
-                device: torch.device | str = "cpu") -> EEGDecodingModel:
-    """An eval-mode float32 :class:`EEGDecodingModel` on ``device`` with
-    random weights from ``seed`` (allocated there directly, initialized once)."""
+                device: torch.device | str = "cuda") -> EEGDecodingModel:
+    """An eval-mode float32 :class:`EEGDecodingModel` on ``device`` (the card
+    unless the caller asks for the CPU) with random weights from ``seed``
+    (allocated there directly, initialized once)."""
     with torch.device("meta"):
         model = EEGDecodingModel(cfg, n_timepoints)
     model = model.to_empty(device=device)

@@ -1,4 +1,4 @@
-"""Region-encoder building blocks (eval mode).
+"""Region-encoder building blocks.
 
 Port of ``imagined_speech_translation_tpu.models.layers``.  The JAX package
 runs four per-region encoders as an ``nn.vmap`` over the region axis; here the
@@ -14,8 +14,12 @@ Token activations are ``(R, B, S, D)``: feature-last as in the JAX package,
 with the region axis leading so that each region's Dense is one slab of a
 batched matmul, and ``R*B`` folds into the attention batch.  Module and
 parameter names follow the flax variable tree (``convert.py`` maps one to the
-other).  Dropout is the identity in eval mode and is not ported; training
-comes with the backward kernels.
+other).
+
+Train mode follows flax's ``train=True``: BatchNorm normalizes with the
+batch's statistics and updates its running ones (``self.training``), and
+every dropout of the JAX module draws from the ``generator`` passed to
+``forward`` (``None`` in eval mode: dropout is the identity).
 """
 
 from __future__ import annotations
@@ -24,9 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imagined_speech_translation_tpu.config import RegionEncoderConfig
-
-from ..ops import dot_product_attention
+from ..config import RegionEncoderConfig
+from ..ops import dot_product_attention, dropout
 
 
 def gelu(x):
@@ -88,7 +91,19 @@ class RegionConv(nn.Module):
 
 
 class RegionNorm(nn.Module):
-    """Per-region eval BatchNorm (running stats) or GroupNorm on ``(B, R*C, T)``."""
+    """Per-region BatchNorm or GroupNorm on ``(B, R*C, T)``.
+
+    BatchNorm is flax's ``nn.BatchNorm(momentum=0.9)``: in eval mode it
+    normalizes with the running statistics; in train mode with the batch's
+    mean and biased variance over ``(B, T)`` (computed in float32 as
+    ``E[x^2] - E[x]^2``, as flax does), and it updates the running
+    statistics to ``0.9 * running + 0.1 * batch`` -- torch momentum 0.1, and
+    the biased variance where ``F.batch_norm`` would store the unbiased one.
+    The running statistics enter that update in the activations' dtype, as
+    the JAX train step casts them to bfloat16 under mixed precision, and
+    are stored back in float32."""
+
+    momentum = 0.9
 
     def __init__(self, n_regions, channels, norm: str, gn_groups: int, eps: float = 1e-5):
         super().__init__()
@@ -105,10 +120,20 @@ class RegionNorm(nn.Module):
         w, b = self.weight.flatten(), self.bias.flatten()
         if self.norm == "group":
             return F.group_norm(x, self.n_groups, w, b, self.eps)
-        return F.batch_norm(
-            x, self.running_mean.flatten(), self.running_var.flatten(), w, b,
-            training=False, eps=self.eps,
-        )
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean.flatten(), self.running_var.flatten(), w, b,
+                training=False, eps=self.eps,
+            )
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2))
+        var = ((xf * xf).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+                old = buf.flatten().to(x.dtype)
+                buf.copy_((self.momentum * old + (1 - self.momentum) * stat).view(buf.shape))
+        y = (xf - mean[:, None]) * (torch.rsqrt(var + self.eps) * w.float())[:, None]
+        return (y + b.float()[:, None]).to(x.dtype)
 
 
 def dense(n_regions: int | None, in_features: int, out_features: int) -> nn.Module:
@@ -134,32 +159,35 @@ class SqueezeExcite(nn.Module):
 
 
 class GatedFFN(nn.Module):
-    """``linear2(gelu(linear1(x)) * sigmoid(gate(x)))``."""
+    """``linear2(dropout(gelu(linear1(x)) * sigmoid(gate(x))))``."""
 
-    def __init__(self, n_regions, dim: int, hidden_dim: int):
+    def __init__(self, n_regions, dim: int, hidden_dim: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = dense(n_regions, dim, hidden_dim)
         self.gate = dense(n_regions, dim, hidden_dim)
         self.linear2 = dense(n_regions, hidden_dim, dim)
 
-    def forward(self, x):
-        return self.linear2(gelu(self.linear1(x)) * torch.sigmoid(self.gate(x)))
+    def forward(self, x, generator=None):
+        h = gelu(self.linear1(x)) * torch.sigmoid(self.gate(x))
+        return self.linear2(dropout(h, self.dropout, generator))
 
 
 class MultiHeadAttention(nn.Module):
     """MHA over ``(..., S, D)`` with separate q/k/v/out projections, no cache.
 
     With ``n_regions`` the projections are per region and the input is
-    ``(R, B, S, D)``; ``R*B`` folds into the attention batch."""
+    ``(R, B, S, D)``; ``R*B`` folds into the attention batch.  With a
+    generator, attention probabilities drop out at rate ``dropout``."""
 
     def __init__(self, dim: int, num_heads: int, n_regions: int | None = None,
-                 seq_shards: int = 1):
+                 seq_shards: int = 1, dropout: float = 0.0):
         super().__init__()
         if seq_shards != 1:
             raise NotImplementedError("seq_shards > 1 (ring attention) is not ported")
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
-        self.num_heads = num_heads
+        self.num_heads, self.dropout = num_heads, dropout
         self.q_proj = dense(n_regions, dim, dim)
         self.k_proj = dense(n_regions, dim, dim)
         self.v_proj = dense(n_regions, dim, dim)
@@ -169,12 +197,14 @@ class MultiHeadAttention(nn.Module):
         s, d = t.shape[-2:]
         return t.reshape(-1, s, self.num_heads, d // self.num_heads).transpose(1, 2).contiguous()
 
-    def forward(self, q_in, kv_in=None):
+    def forward(self, q_in, kv_in=None, generator=None):
         kv_in = q_in if kv_in is None else kv_in
         out = dot_product_attention(
             self._split(self.q_proj(q_in)),
             self._split(self.k_proj(kv_in)),
             self._split(self.v_proj(kv_in)),
+            dropout_rate=self.dropout if generator is not None else 0.0,
+            generator=generator,
         )
         return self.out_proj(out.transpose(1, 2).reshape(q_in.shape))
 
@@ -228,12 +258,13 @@ class RegionConvAttentionEncoder(nn.Module):
             if cfg.use_positional_embedding:
                 self.pos_emb = _param(R, 1, n_timepoints + 1 + nt, h)
             self.cross_scale_attn = MultiHeadAttention(
-                h, cfg.attn_heads[0] // 2, R, cfg.seq_shards
+                h, cfg.attn_heads[0] // 2, R, cfg.seq_shards, dropout=0.1
             )
             for i in range(cfg.num_attn_layers):
                 self.add_module(f"attn{i}_norm", RegionLayerNorm(R, h))
                 self.add_module(
-                    f"attn{i}", MultiHeadAttention(h, cfg.attn_heads[i], R, cfg.seq_shards)
+                    f"attn{i}",
+                    MultiHeadAttention(h, cfg.attn_heads[i], R, cfg.seq_shards, dropout=0.1),
                 )
                 self.add_module(f"ffn{i}_norm", RegionLayerNorm(R, h))
                 self.add_module(f"ffn{i}", GatedFFN(R, h, h * (4 if i == 0 else 2)))
@@ -246,29 +277,33 @@ class RegionConvAttentionEncoder(nn.Module):
         self.projection_ln2 = RegionLayerNorm(R, h)
         self.diversity_head = RegionLinear(R, h, h)
 
-    def _stem(self, x):
+    def _stem(self, x, gen):
         cfg = self.cfg
+        light, med, heavy = cfg.dropout_tiers
         for i in range(len(cfg.conv_channels)):
             if i == cfg.depthwise_stage:
                 y = getattr(self, f"stage{i}_depthwise")(x)
                 y = getattr(self, f"stage{i}_pointwise")(y)
-                x = gelu(getattr(self, f"stage{i}_bn")(y))
+                x = dropout(gelu(getattr(self, f"stage{i}_bn")(y)), med, gen)
                 continue
             res = getattr(self, f"stage{i}_residual", None)
             residual = x if res is None else res(x)
-            x = gelu(getattr(self, f"stage{i}_convbn")(x) + residual)
-        return self.se(x)
+            y = gelu(getattr(self, f"stage{i}_convbn")(x) + residual)
+            x = dropout(y, light if i < 2 else (med if i < 4 else heavy), gen)
+        return dropout(self.se(x), heavy, gen)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """``generator``: the dropout stream in train mode, ``None`` in eval."""
         b, r, c, t = x.shape
-        x = self._stem(x.reshape(b, r * c, t))  # (B, R*C, T)
+        x = self._stem(x.reshape(b, r * c, t), generator)  # (B, R*C, T)
         # (B, R*C, T) -> (R, B, T, C): feature-last tokens, region leading
         x = x.reshape(b, r, self.c_out, t).permute(1, 0, 3, 2)
         if self.cfg.cnn_only:
-            return self._cnn_only_pool(x)
+            return self._cnn_only_pool(x, generator)
         cfg = self.cfg
-        y = gelu(self.cnn_to_attn_ln1(self.cnn_to_attn_fc1(x)))
-        y = gelu(self.cnn_to_attn_ln2(self.cnn_to_attn_fc2(y)))
+        light, med, _ = cfg.dropout_tiers
+        y = dropout(gelu(self.cnn_to_attn_ln1(self.cnn_to_attn_fc1(x))), 0.1, generator)
+        y = dropout(gelu(self.cnn_to_attn_ln2(self.cnn_to_attn_fc2(y))), 0.05, generator)
         x = self.cnn_to_attn_fc3(y)
 
         nt = cfg.num_temporal_tokens
@@ -285,31 +320,35 @@ class RegionConvAttentionEncoder(nn.Module):
 
         states = []
         for i in range(cfg.num_attn_layers):
-            a = getattr(self, f"attn{i}")(getattr(self, f"attn{i}_norm")(x))
-            x = x + a
+            a = getattr(self, f"attn{i}")(getattr(self, f"attn{i}_norm")(x), generator=generator)
+            x = x + dropout(a, light, generator)
             states.append(x)
-            x = x + getattr(self, f"ffn{i}")(getattr(self, f"ffn{i}_norm")(x))
+            f = getattr(self, f"ffn{i}")(getattr(self, f"ffn{i}_norm")(x), generator)
+            x = x + dropout(f, med, generator)
             if i > 0:
-                x = x + cfg.cross_scale_weight * self.cross_scale_attn(x, states[-2])
+                cross = self.cross_scale_attn(x, states[-2], generator=generator)
+                x = x + cfg.cross_scale_weight * cross
 
         combined = x[:, :, 0] + cfg.temporal_pool_weight * x[:, :, 1 : 1 + nt].mean(dim=2)
-        return self._project([combined] * 3)
+        return self._project([combined] * 3, generator)
 
-    def _project(self, inputs):
+    def _project(self, inputs, gen):
         outs = [
-            gelu(getattr(self, f"multi_scale_proj{i}_ln")(getattr(self, f"multi_scale_proj{i}_fc")(inp)))
+            dropout(gelu(getattr(self, f"multi_scale_proj{i}_ln")(
+                getattr(self, f"multi_scale_proj{i}_fc")(inp))), 0.05, gen)
             for i, inp in enumerate(inputs)
         ]
-        y = gelu(self.projection_ln1(self.projection_fc1(torch.cat(outs, dim=-1))))
+        y = dropout(gelu(self.projection_ln1(self.projection_fc1(torch.cat(outs, dim=-1)))),
+                    0.1, gen)
         final = self.projection_ln2(self.projection_fc2(y))
         div = self.diversity_head(final)
         div = div / (torch.linalg.vector_norm(div, dim=-1, keepdim=True) + 1e-12)
         return final + self.cfg.diversity_weight * div
 
-    def _cnn_only_pool(self, x):
+    def _cnn_only_pool(self, x, gen):
         mean_pool = x.mean(dim=2)
         max_pool = x.amax(dim=2)
         attn_w = torch.softmax((x * mean_pool[:, :, None, :]).sum(dim=-1), dim=-1)
         attn_pool = (x * attn_w[..., None]).sum(dim=2)
-        return self._project([mean_pool, max_pool, attn_pool])
+        return self._project([mean_pool, max_pool, attn_pool], gen)
 

@@ -4,8 +4,13 @@ Port of ``imagined_speech_translation_tpu.ops.attention``.  The dispatch is
 the JAX package's ``_flash_available`` rule without its backend test: the
 flash route when there is no mask, both sequences are at least 128 long and
 the head dim is at most 256; the float32-logit softmax path otherwise.  The
-flash route launches the CUDA kernel for a tensor on the card and runs its
+flash route launches the CUDA kernels for a tensor on the card and runs their
 plain twin for a tensor on the CPU (``ops.flash_attention``).
+
+Attention-probability dropout takes a CPU ``torch.Generator``: the flash
+route draws its int32 kernel seed from it, the softmax route a Bernoulli
+mask (``ops.random``).  As in the JAX package, the two routes draw
+different bits.
 """
 
 from __future__ import annotations
@@ -13,13 +18,18 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention
+from .random import bernoulli_keep, draw_seed
 
 
-def _softmax_attention(q, k, v, mask, scale):
+def _softmax_attention(q, k, v, mask, scale, dropout_rate=0.0, generator=None):
     logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-    return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        keep = bernoulli_keep(probs.shape, 1.0 - dropout_rate, probs.device, generator)
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
+    return torch.matmul(probs.to(v.dtype), v)
 
 
 def flash_route(q, k, mask) -> bool:
@@ -29,11 +39,18 @@ def flash_route(q, k, mask) -> bool:
     return q.shape[-2] >= 128 and k.shape[-2] >= 128 and q.shape[-1] <= 256
 
 
-def dot_product_attention(q, k, v, mask=None, *, scale: float | None = None):
+def dot_product_attention(q, k, v, mask=None, *, scale: float | None = None,
+                          dropout_rate: float = 0.0,
+                          generator: torch.Generator | None = None):
     """Attention over ``(B, H, S, D)``; ``mask`` broadcasts against
-    ``(B, H, Q, K)`` with True = attend."""
+    ``(B, H, Q, K)`` with True = attend.  ``dropout_rate > 0`` needs
+    ``generator``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if dropout_rate > 0.0 and generator is None:
+        raise ValueError("dropout_rate > 0 requires a generator")
     if flash_route(q, k, mask):
-        return flash_attention(q, k, v, scale=scale)[0]
-    return _softmax_attention(q, k, v, mask, scale)
+        seed = draw_seed(generator) if dropout_rate > 0.0 else None
+        return flash_attention(q, k, v, scale=scale, dropout_rate=dropout_rate,
+                               dropout_seed=seed)[0]
+    return _softmax_attention(q, k, v, mask, scale, dropout_rate, generator)

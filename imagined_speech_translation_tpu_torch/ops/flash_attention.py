@@ -1,9 +1,16 @@
-"""Unmasked attention forward through the hand-written CUDA kernel.
+"""Unmasked attention with optional dropout through the hand-written CUDA
+kernels, differentiable.
 
-``flash_attention`` launches ``csrc/flash_fwd.cu`` for tensors on the card and
-runs ``flash_attention_reference`` (the plain softmax(QK^T)V it replaces) for
-tensors on the CPU.  Forward only, no dropout: the serving path.  The
-autograd function arrives with the backward kernel.
+Port of ``imagined_speech_translation_tpu.ops.pallas_attention``'s
+``flash_attention`` and its custom VJP ``_flash_core``.  For tensors on the
+card the forward launches ``csrc/flash_fwd.cu`` and saves ``q, k, v``, the
+output, the base-2 logsumexp and the dropout seed; the backward computes
+``delta = rowsum(dO * O)`` in float32 and launches the fused backward
+``csrc/flash_bwd.cu``, which regenerates the dropout mask.  With dropout
+rate 0 the backward runs the same fused kernel: the JAX package dispatches
+rate 0 to its split dQ / dKV kernels, which are not ported yet.  For tensors
+on the CPU ``flash_attention`` runs ``flash_attention_reference`` (the plain
+softmax(QK^T)V with the same keep-mask), and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -12,21 +19,31 @@ import math
 
 import torch
 
-from .._kernels import FLASH_FWD
+from .._kernels import FLASH_BWD, FLASH_FWD
+from .dropout_mask import dropout_blocks, dropout_keep_mask_reference, dropout_threshold
 
 LOG2E = math.log2(math.e)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_reference(q, k, v, *, scale: float | None = None):
-    """Plain twin of the kernel over ``(B, H, S, D)``: logits in float32,
-    softmax, probabilities cast back to ``v``'s dtype.  Returns ``(out,
-    lse)`` with ``lse`` the base-2 logsumexp of the scaled scores,
-    float32 ``(B*H, S_q)``."""
+def flash_attention_reference(q, k, v, *, scale: float | None = None, dropout_rate: float = 0.0,
+                              dropout_seed: int = 0, block_q: int | None = None,
+                              block_k: int | None = None):
+    """Plain twin of the kernels over ``(B, H, S, D)``: logits in float32,
+    softmax, kept probabilities scaled by ``1 / (1 - rate)`` and dropped ones
+    zeroed, cast back to ``v``'s dtype.  Returns ``(out, lse)`` with ``lse``
+    the base-2 logsumexp of the scaled scores, float32 ``(B*H, S_q)``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale
-    out = torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        b, h, s_q, s_kv = logits.shape
+        block_q, block_k = dropout_blocks(b * h, s_q, s_kv, q.dtype, block_q, block_k)
+        keep = dropout_keep_mask_reference(dropout_seed, b, h, s_q, s_kv, block_q=block_q,
+                                           block_k=block_k, rate=dropout_rate, device=q.device)
+        probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
+    out = torch.matmul(probs.to(v.dtype), v)
     lse = torch.logsumexp(logits, dim=-1).reshape(-1, q.shape[-2]) * LOG2E
     return out, lse
 
@@ -53,26 +70,87 @@ def _check(q, k, v) -> None:
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q/k/v")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("flash_attention kernel is forward-only (no backward yet)")
 
 
-def flash_attention(q, k, v, *, scale: float | None = None):
-    """Unmasked attention over ``(B, H, S, D)``; returns ``(out, lse)`` as
-    :func:`flash_attention_reference` does.  A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes the reference."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale=scale)
-    _check(q, k, v)
+def _dropout_args(drop):
+    """The kernels' dropout arguments for ``drop = (rate, seed, block_q,
+    block_k)``: on-flag, seed, threshold, tiles and 1 / (1 - rate)."""
+    rate, seed, block_q, block_k = drop
+    if rate == 0.0:
+        return 0, 0, 0, 0, 0, 1.0
+    return 1, seed, dropout_threshold(rate), block_q, block_k, 1.0 / (1.0 - rate)
+
+
+def _forward(q, k, v, scale, drop):
     b, h, s_q, d = q.shape
-    s_kv = k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
     FLASH_FWD.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b * h, s_q, s_kv, d, float(scale) * LOG2E, _DTYPES[q.dtype],
+        b * h, s_q, k.shape[2], d, float(scale) * LOG2E, _DTYPES[q.dtype], *_dropout_args(drop),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out, lse
+
+
+def _backward(q, k, v, out, lse, dout, scale, drop):
+    b, h, s_q, d = q.shape
+    delta = (dout.float() * out.float()).sum(dim=-1).reshape(b * h, s_q)
+    dout = dout.to(q.dtype).contiguous()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    FLASH_BWD.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b * h, s_q, k.shape[2], d, float(scale) * LOG2E, float(scale), _DTYPES[q.dtype],
+        *_dropout_args(drop), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return dq.to(q.dtype), dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, drop):
+        out, lse = _forward(q, k, v, scale, drop)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.drop = scale, drop
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, dout, ctx.scale, ctx.drop)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, scale: float | None = None, dropout_rate: float = 0.0,
+                    dropout_seed: int | None = None, block_q: int | None = None,
+                    block_k: int | None = None):
+    """Unmasked attention over ``(B, H, S, D)`` with optional attention-
+    probability dropout; returns ``(out, lse)`` as
+    :func:`flash_attention_reference` does, differentiable in ``q, k, v``.
+
+    ``dropout_seed`` (an int32) is required when ``dropout_rate > 0``; the
+    mask is defined on the logical tiles ``block_q x block_k``, by default
+    those the JAX package picks (:func:`~.dropout_mask.dropout_blocks`).  A
+    CUDA tensor launches the kernels (or raises); a CPU tensor takes the
+    plain twin."""
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    drop = (0.0, 0, 0, 0)
+    if dropout_rate > 0.0:
+        b, h, s_q, _ = q.shape
+        block_q, block_k = dropout_blocks(b * h, s_q, k.shape[2], q.dtype, block_q, block_k)
+        drop = (float(dropout_rate), int(dropout_seed), block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale=scale, dropout_rate=dropout_rate,
+                                         dropout_seed=drop[1], block_q=block_q, block_k=block_k)
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, float(scale), drop)
+    return _forward(q, k, v, scale, drop)

@@ -16,6 +16,7 @@ from imagined_speech_translation_tpu_torch.ops import (
     flash_attention,
     flash_attention_reference,
     flash_route,
+    tile_keep_mask,
 )
 
 
@@ -93,7 +94,11 @@ def test_flash_refuses_non_cuda_devices():
 
 def test_cpu_paths_count_no_launches():
     _kernels.reset_launch_counts()
-    q, k, v = map(torch.from_numpy, _qkv(s=128, d=32, seed=5))
-    dot_product_attention(q, k, v)
+    q, k, v = (t.requires_grad_() for t in map(torch.from_numpy, _qkv(s=128, d=32, seed=5)))
+    dot_product_attention(q, k, v, dropout_rate=0.1,
+                          generator=torch.Generator().manual_seed(0)).sum().backward()
+    tile_keep_mask(3, 0, 0, 0, block_q=128, block_k=128, rate=0.1, device="cpu")
     SignalFrontend().preprocess(torch.zeros((2, 3, 50)))
-    assert _kernels.launch_counts() == {"sosfilt": 0, "flash_fwd": 0}
+    assert _kernels.launch_counts() == {
+        "sosfilt": 0, "flash_fwd": 0, "flash_bwd": 0, "dropout_mask": 0,
+    }

@@ -184,7 +184,7 @@ def test_convert_is_strict(setup):
 
 def test_build_model_is_seeded(setup):
     cfg = setup["cfg"].model
-    a, b, c = (build_model(cfg, T, seed=s) for s in (0, 0, 1))
+    a, b, c = (build_model(cfg, T, seed=s, device="cpu") for s in (0, 0, 1))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert sa.keys() == setup["tm"].state_dict().keys()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
