@@ -16,6 +16,12 @@ Phases, each failing loudly (non-zero exit, no final line):
    with another seed's mask must exceed), and the fused flash backward
    (rates 0 and 0.1) against autograd through the plain version, in float32
    and bfloat16, with times beside ``F.scaled_dot_product_attention``'s;
+4b. split kernels: the rate-0 backward's dQ and dK/dV kernels at the
+   eval-mode gradient's shapes and at head dims 8-192, in float32 and
+   bfloat16, against autograd through the plain version in float32 on the
+   same input values (max |err| / max |ref| within 1e-4 f32 / 2e-2 bf16, a
+   bound the gradients without the delta term must exceed); two launches
+   bit-identical; the fused kernel at rate 0 within the same bound; times;
 5. slice: the full-width model (random weights from a seed, BatchNorm folded,
    bf16) decodes 16 raw windows through ``cli.serve.build_decode_fn``; the
    serving kernels' launch counters must rise;
@@ -28,11 +34,16 @@ Phases, each failing loudly (non-zero exit, no final line):
    moved at step 1, and 5 flash forward and 5 flash backward launches per
    micro-step;
 9. train card vs CPU: a small float32 configuration's loss and gradients
-   (eval-mode forward, dropout off) on the card and on the CPU.
+   (eval-mode forward, dropout off, so the split backward) on the card and
+   on the CPU;
+10. profile train: ``cli/profile.py --what train`` at full width
+   (``default_config()``, B = 8, T = 1651, float32, 3 traced iterations
+   after one warm-up): finite gradients, 5 flash forward, 5 split dQ and 5
+   split dK/dV launches per iteration and no fused backward.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-kernels' JSON summary, with each kernel's launches on the serving and the
-training path.  ``dropout_mask`` is a check-only probe: the mask it writes is
+kernels' JSON summary, with each kernel's launches on the serving path, the
+training path and the profile-train path.  ``dropout_mask`` is a check-only probe: the mask it writes is
 the ``__device__`` function every flash launch with dropout evaluates, so
 its own launch count is 0 on both paths.  Imports nothing of JAX.
 """
@@ -236,6 +247,7 @@ def phase_train_kernels():
         dropout_blocks,
         tile_keep_mask_reference,
     )
+    from imagined_speech_translation_tpu_torch.ops.flash_attention import backward_fused
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -334,13 +346,22 @@ def phase_train_kernels():
                                      f"from the right one: {wrong} <= {fwd_rel}")
 
             # backward at rate 0 and rate 0.1; the rate-0.1 gradients must
-            # also differ from the rate-0 ones by more than the bound
+            # also differ from the rate-0 ones by more than the bound.  Rate 0
+            # dispatches to the split kernels (phase 4b), so the fused kernel
+            # is called directly there.
             dropfree = None
             for r in (0.0, rate):
                 kw = dict(dropout_rate=r, dropout_seed=seed)
                 qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-                out = flash_attention(qg, kg, vg, **kw)[0]
-                got = torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
+                out, lse = flash_attention(qg, kg, vg, **kw)
+                if r == 0.0:
+                    delta = (dout.float() * out.float()).sum(dim=-1).reshape(bh, S)
+                    fused = lambda: backward_fused(q, k, v, dout, lse, delta, d**-0.5,  # noqa: E731
+                                                   (0.0, 0, 0, 0))
+                else:
+                    fused = lambda: torch.autograd.grad(out, (qg, kg, vg), dout,  # noqa: E731
+                                                        retain_graph=True)
+                got = fused()
                 ref = flash_attention_reference(qg, kg, vg, **kw)[0]
                 want = torch.autograd.grad(ref, (qg, kg, vg), dout, retain_graph=True)
                 errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
@@ -353,15 +374,14 @@ def phase_train_kernels():
                              for a, b in zip(got, dropfree)]
                     dropfree = None
                 del got, want
-                ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dout,
-                                                         retain_graph=True), iters=5)
+                ms = cuda_ms(fused, iters=5)
                 plain = cuda_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dout,
                                                             retain_graph=True), iters=3)
                 del ref
                 sdpa = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=r)
                 lib = cuda_ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), dout,
                                                           retain_graph=True), iters=5)
-                del out, sdpa
+                del out, lse, sdpa, fused
                 # reads q, k, v, dO, lse, delta; writes dQ, dK, dV
                 least, by = least_time(2.5 * flops, 7 * io + 8 * bh * S, name)
                 checks["flash_bwd"].append(dict(
@@ -405,6 +425,168 @@ def phase_train_kernels():
                 raise AssertionError(f"flash_bwd d={d} {dtype}: {rel} > {bwd_bound}")
     log("[train-kernels] flash_bwd (6, 200 x 333, d) dropout 0.1 max|err|/max|ref| by "
         "(d, dtype): " + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
+    return checks
+
+
+def phase_split_kernels():
+    """The rate-0 backward's split kernels at the eval-mode gradient's shapes
+    (``cli/profile.py --what train`` at B = 8 x 4 regions: (192, 1655, 128)
+    self-attention and (96, 1655, 256) cross-scale attention) and at head
+    dims 8-192 on 200 queries x 333 keys, in float32 and bfloat16.  dQ, dK
+    and dV against autograd through the plain version in float32 on the same
+    input values, max |err| / max |ref| within 1e-4 f32 / 2e-2 bf16.  Inputs:
+    q, k ~ N(0, 0.3^2), v ~ N(0.5, 0.3^2), dO ~ N(0, 1); with V's non-zero
+    mean the delta term carries most of dS, so the plain gradients computed
+    without it must lie farther than the bound.  Two launches must give the
+    same bits, and the fused kernel at rate 0 must agree within the bound.
+    Times: dQ, dK/dV and both (kernels alone), the fused kernel at rate 0,
+    the plain autograd and ``F.scaled_dot_product_attention``'s backward at
+    rate 0 (one ``autograd.grad`` call; a yardstick only)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_reference,
+    )
+    from imagined_speech_translation_tpu_torch.ops.flash_attention import (
+        backward_dkv,
+        backward_dq,
+        backward_fused,
+        backward_split,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20)
+    checks = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+    def inputs(b, h, s_q, s_kv, d, dtype):
+        q = rng.normal(size=(b, h, s_q, d)) * 0.3
+        k = rng.normal(size=(b, h, s_kv, d)) * 0.3
+        v = rng.normal(size=(b, h, s_kv, d)) * 0.3 + 0.5
+        dout = rng.normal(size=(b, h, s_q, d))
+        return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in (q, k, v, dout)]
+
+    def plain_grads(q, k, v, dout):
+        """Autograd through the plain version in float32, and the dQ and dK
+        it gives without the delta term (dS = P * dP)."""
+        qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+        scale = q.shape[-1] ** -0.5
+        want = torch.autograd.grad(flash_attention_reference(qf, kf, vf)[0], (qf, kf, vf),
+                                   dout.float())
+        with torch.no_grad():
+            p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+            ds = p * torch.matmul(dout.float(), vf.transpose(-1, -2))
+            del p
+            no_delta = (torch.matmul(ds, kf) * scale, torch.matmul(ds.transpose(-1, -2), qf) * scale)
+        return want, no_delta
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    for b, h, d in ((32, 6, 128), (32, 3, 256)):
+        S = 1655
+        bh = b * h
+        for dtype in (torch.float32, torch.bfloat16):
+            name, bound = str(dtype).removeprefix("torch."), bounds[dtype]
+            q, k, v, dout = inputs(b, h, S, S, d, dtype)
+            scale = d**-0.5
+            out, lse = flash_attention(q, k, v)
+            delta = (dout.float() * out.float()).sum(dim=-1).reshape(bh, S)
+            args = (q, k, v, dout, lse, delta, scale)
+            got = backward_split(*args)
+            again = backward_split(*args)
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            del again
+            fused = backward_fused(*args, (0.0, 0, 0, 0))
+            vs_fused = [rel(a, f) for a, f in zip(got, fused)]
+            del fused
+            want, no_delta = plain_grads(q, k, v, dout)
+            errs = [(a.float() - w).abs().max().item() for a, w in zip(got, want)]
+            rels = [rel(a, w) for a, w in zip(got, want)]
+            apart = [rel(n, w) for n, w in zip(no_delta, want[:2])]
+            del got, want, no_delta
+
+            ms_dq = cuda_ms(lambda: backward_dq(*args), iters=5)
+            ms_dkv = cuda_ms(lambda: backward_dkv(*args), iters=5)
+            ms_split = cuda_ms(lambda: backward_split(*args), iters=5)
+            ms_fused = cuda_ms(lambda: backward_fused(*args, (0.0, 0, 0, 0)), iters=5)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            ref = flash_attention_reference(qg, kg, vg)[0]
+            plain = cuda_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dout,
+                                                        retain_graph=True), iters=3)
+            del ref
+            sdpa = F.scaled_dot_product_attention(qg, kg, vg)
+            lib = cuda_ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), dout,
+                                                      retain_graph=True), iters=5)
+            del sdpa, out, lse
+            flops = 2 * bh * S * S * d  # one (S x S x d) product
+            io = q.numel() * q.element_size()
+            rows = 8 * bh * S  # lse and delta, float32
+            # dQ reads q, k, v, dO, lse, delta and writes dQ; dK/dV writes two
+            b_dq = least_time(3 * flops, 5 * io + rows, name)
+            b_dkv = least_time(4 * flops, 6 * io + rows, name)
+            b_split = least_time(7 * flops, 7 * io + rows, name)
+            common = dict(shape=[bh, S, d], dtype=name, bound=bound, deterministic=same,
+                          rel_err_vs_fused_rate0=vs_fused, split_ms=ms_split,
+                          fused_rate0_ms=ms_fused, split_bound_ms=b_split[0],
+                          plain_ms=plain, library_ms=lib)
+            checks["flash_bwd_dq"].append(dict(
+                common, max_abs_err=errs[0], rel_err=rels[0], rel_err_without_delta=apart[0],
+                ms=ms_dq, bound_ms=b_dq[0], bound_by=b_dq[1]))
+            checks["flash_bwd_dkv"].append(dict(
+                common, max_abs_err=max(errs[1:]), rel_err_dk_dv=rels[1:],
+                rel_err_without_delta=apart[1], ms=ms_dkv, bound_ms=b_dkv[0],
+                bound_by=b_dkv[1]))
+            log(f"[split-kernels] ({bh}, {S}, {d}) {name}: max|err|/max|ref| dq {rels[0]:.2e} "
+                f"dk {rels[1]:.2e} dv {rels[2]:.2e} (bound {bound:.0e}); without delta dq "
+                f"{apart[0]:.2e} dk {apart[1]:.2e} (must exceed it); two launches "
+                f"{'bit-identical' if same else 'DIFFER'}; against the fused kernel at rate 0 "
+                + " ".join(f"{x:.2e}" for x in vs_fused)
+                + f"; dq {ms_dq:.3f} ms + dkv {ms_dkv:.3f} ms = split {ms_split:.3f} ms "
+                f"(bound {b_split[0]:.3f} ms, {b_split[1]}), fused at rate 0 {ms_fused:.3f} ms, "
+                f"plain {plain:.3f} ms, sdpa bwd {lib:.3f} ms")
+            if not max(rels) <= bound:
+                raise AssertionError(f"split backward disagrees with autograd of its twin: {rels}")
+            if not min(apart) > bound:
+                raise AssertionError(f"split backward check cannot tell a missing delta term: "
+                                     f"{apart} <= {bound}")
+            if not same:
+                raise AssertionError("split backward: two launches gave different bits")
+            if not max(vs_fused) <= bound:
+                raise AssertionError(f"split and fused backward disagree at rate 0: {vs_fused}")
+            del q, k, v, dout, delta, args, qg, kg, vg
+            torch.cuda.empty_cache()
+
+    # other head dims (96/192: reference heads (8,4,4)) and ragged lengths,
+    # through flash_attention's autograd at rate 0, which must launch the
+    # split kernels and not the fused one; both dtypes and both variants
+    # (bf16 with d % 16 == 0 takes the tensor cores, other d the CUDA cores)
+    worst = {}
+    _kernels.reset_launch_counts()
+    for d in (8, 40, 48, 96, 192):
+        for dtype, bound in bounds.items():
+            q, k, v, dout = inputs(2, 3, 200, 333, d, dtype)
+            qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
+            got = torch.autograd.grad(flash_attention(qg, kg, vg)[0], (qg, kg, vg), dout)
+            want, no_delta = plain_grads(q, k, v, dout)
+            err = max(rel(a, w) for a, w in zip(got, want))
+            apart = min(rel(n, w) for n, w in zip(no_delta, want[:2]))
+            worst[(d, str(dtype).removeprefix("torch."))] = err
+            if not err <= bound < apart:
+                raise AssertionError(f"split backward d={d} {dtype}: {err} (without delta "
+                                     f"{apart}), bound {bound}")
+    launches = _kernels.launch_counts()
+    if launches["flash_bwd"] or launches["flash_bwd_dq"] != 10 or launches["flash_bwd_dkv"] != 10:
+        raise AssertionError(f"rate-0 autograd launched {launches}, want 10 split dQ and dK/dV "
+                             "and no fused backward")
+    log("[split-kernels] (6, 200 x 333, d) rate 0 max|err|/max|ref| by (d, dtype): "
+        + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
     return checks
 
 
@@ -612,9 +794,13 @@ def phase_train(smi: str):
                                  f"weights by {moved}")
     launches = _kernels.launch_counts()
     want = 5 * accum * n_steps  # 3 self + 2 cross-scale attentions per micro-step
-    log(f"[train] kernel launches in {n_steps} steps: {launches} (flash fwd/bwd want {want})")
-    if launches["flash_fwd"] != want or launches["flash_bwd"] != want:
-        raise AssertionError(f"training launched flash {launches}, want {want} each")
+    log(f"[train] kernel launches in {n_steps} steps: {launches} (flash fwd/bwd want {want}, "
+        "split dQ and dK/dV 0: every training attention has dropout 0.1)")
+    if launches["flash_fwd"] != want or launches["flash_bwd"] != want or (
+        launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]
+    ):
+        raise AssertionError(f"training launched flash {launches}, want {want} forward and "
+                             "fused backward each and no split backward")
     sec = float(np.mean(times[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train] {sec:.3f} s/step (mean of steps 1-{n_steps - 1}; all "
@@ -629,11 +815,13 @@ def phase_train_card_vs_cpu():
     """The loss function's eval-mode forward (dropout off) and its gradients
     on a small float32 configuration, on the card and on the CPU, from the
     same weights and batch; TF32 off.  T = 252, so the region encoders'
-    256-token attentions go through the flash kernels on the card."""
+    256-token attentions go through the flash kernels on the card, and their
+    backward at rate 0 through the split kernels."""
     import copy
 
     import torch
 
+    from imagined_speech_translation_tpu_torch import _kernels
     from imagined_speech_translation_tpu_torch.cli.profile_slice import synthetic_train_batch
     from imagined_speech_translation_tpu_torch.config import default_config, replace_nested
     from imagined_speech_translation_tpu_torch.training import (
@@ -665,11 +853,18 @@ def phase_train_card_vs_cpu():
     out = {}
     for dev, m in (("cpu", module), (DEVICE, copy.deepcopy(module).to(DEVICE))):
         params = dict(m.named_parameters())
+        _kernels.reset_launch_counts()
         total, comps = make_loss_fn(m, cfg, bow)(
             params, {k: v.to(dev) for k, v in batch.items()}, None, weights)
         grads = torch.autograd.grad(total, list(params.values()))
+        launches = _kernels.launch_counts()
         out[dev] = (torch.stack([total] + list(comps.values())).detach().cpu(),
                     torch.cat([g.flatten() for g in grads]).cpu())
+    log(f"[train-card-vs-cpu] card launches: {launches}")
+    if not (launches["flash_fwd"] == launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 5
+            and launches["flash_bwd"] == 0):
+        raise AssertionError(f"the eval-mode gradient launched {launches}, want 5 flash forward, "
+                             "5 split dQ and 5 split dK/dV and no fused backward")
     (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[DEVICE]
     loss_rel = ((l_card - l_cpu).abs() / l_cpu.abs()).max().item()
     grad_rel = (torch.linalg.vector_norm(g_card - g_cpu) / torch.linalg.vector_norm(g_cpu)).item()
@@ -681,14 +876,64 @@ def phase_train_card_vs_cpu():
     return loss_rel, grad_rel
 
 
+def phase_profile_train(smi: str):
+    """The eval-mode gradient at full width through the port's profiling
+    entry point, ``cli/profile.py --what train``: ``default_config()``,
+    B = 8 (4 if 8 does not fit), T = 1651, float32 weights, one warm-up and
+    3 traced iterations.  Every flash attention's backward runs at rate 0,
+    so each iteration launches 5 flash forward, 5 split dQ and 5 split dK/dV
+    kernels and no fused backward; the last gradients must be finite."""
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import profile
+
+    iters = 3
+    for batch in (8, 4):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        try:
+            res = profile.main(["--what", "train", "--batch", str(batch), "--iters", str(iters),
+                                "--out", "build/profile/smoke_profile_train"])
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[profile-train] B={batch} does not fit in float32: {e}")
+    else:
+        raise AssertionError("profile train: neither B=8 nor B=4 fits in float32")
+    launches = _kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    runs = iters + 1  # the warm-up and the traced iterations
+    per_iter = {k: n / runs for k, n in launches.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in res["out"])
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in res["out"]]))
+    sec = res["seconds"]
+    log(f"[profile-train] B={batch} T=1651 f32 eval-mode gradient: {float(np.mean(sec)):.3f} s "
+        f"per iteration under the profiler (all {[round(t, 3) for t in sec]}), peak memory "
+        f"{peak:.1f} GiB, gradient norm {norm.item():.4e} over {len(res['out'])} tensors "
+        f"({'finite' if finite else 'NOT FINITE'}); launches per iteration {per_iter}; "
+        f"trace {res['trace']}; on {smi}")
+    if not finite:
+        raise AssertionError("profile train: non-finite gradients")
+    want = {"flash_fwd": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5, "flash_bwd": 0}
+    if any(launches[k] != n * runs for k, n in want.items()):
+        raise AssertionError(f"profile train launched {launches} in {runs} runs, want {want} "
+                             "per run")
+    return launches
+
+
 # the check whose numbers head each kernel's entry: the shape and dtype the
 # path runs most (serving flash forward at B=16, training backward at
-# micro-batch 4 with dropout, the probe's bf16 tile)
+# micro-batch 4 with dropout, the split backward of the eval-mode gradient
+# at B=8 in float32, the probe's bf16 tile)
 HEADLINE = {
     "sosfilt": lambda c: True,
     "flash_fwd": lambda c: c["dtype"] == "bfloat16" and c["shape"] == [384, 1655, 128],
     "flash_bwd": lambda c: (c["dtype"] == "bfloat16" and c["shape"] == [96, 1655, 128]
                             and c["dropout"] > 0),
+    "flash_bwd_dq": lambda c: c["dtype"] == "float32" and c["shape"] == [192, 1655, 128],
+    "flash_bwd_dkv": lambda c: c["dtype"] == "float32" and c["shape"] == [192, 1655, 128],
     "dropout_mask": lambda c: c["storage"] == "bfloat16",
 }
 
@@ -710,23 +955,36 @@ def summary(checks, launches_by_path):
     return {"kernels": out}
 
 
+def timed(phase, *args):
+    """``phase(*args)``, with its seconds logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
-    smi = phase_device()
-    phase_build()
-    checks = phase_kernels()
-    for name, rows in phase_train_kernels().items():
-        checks.setdefault(name, []).extend(rows)
-    decode_fn, serve_launches, ctx = phase_slice(smi)
-    phase_card_vs_cpu(ctx)
-    phase_serving(decode_fn, ctx["cfg"].data.n_timepoints)
+    t0 = time.perf_counter()
+    smi = timed(phase_device)
+    timed(phase_build)
+    checks = timed(phase_kernels)
+    for phase in (phase_train_kernels, phase_split_kernels):
+        for name, rows in timed(phase).items():
+            checks.setdefault(name, []).extend(rows)
+    decode_fn, serve_launches, ctx = timed(phase_slice, smi)
+    timed(phase_card_vs_cpu, ctx)
+    timed(phase_serving, decode_fn, ctx["cfg"].data.n_timepoints)
     del decode_fn, ctx
     torch.cuda.empty_cache()
-    train_launches = phase_train(smi)
-    phase_train_card_vs_cpu()
+    train_launches = timed(phase_train, smi)
+    timed(phase_train_card_vs_cpu)
+    profile_launches = timed(phase_profile_train, smi)
+    log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
-    log(json.dumps(summary(checks, {"serving": serve_launches, "training": train_launches})))
+    log(json.dumps(summary(checks, {"serving": serve_launches, "training": train_launches,
+                                    "profile_train": profile_launches})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

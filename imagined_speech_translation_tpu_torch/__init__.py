@@ -11,7 +11,11 @@ Slices ported so far, with the TPU kernels on them rewritten in CUDA C++
 * the default training step -- train-mode model (dropout, BatchNorm batch
   statistics), flash attention with in-kernel dropout and its fused
   backward, composite loss, three-group fused AdamW and gradient
-  accumulation (``training``).
+  accumulation (``training``);
+* the eval-mode gradient -- ``cli.profile --what train``: the gradient of
+  ``models.bart.cross_entropy_loss`` through the eval-mode model, whose
+  attention backward at dropout rate 0 runs the split dQ and dK/dV
+  kernels, traced with ``utils.profiling``.
 """
 
 __version__ = "0.1.0"

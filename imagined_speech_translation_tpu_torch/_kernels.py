@@ -24,8 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("sosfilt.cu", "flash_fwd.cu", "flash_bwd.cu", "dropout_mask.cu")
-HEADERS = ("dropout_mask.cuh",)
+SOURCES = ("sosfilt.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_bwd_split.cu", "dropout_mask.cu")
+HEADERS = ("dropout_mask.cuh", "flash_bwd_kv.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,6 +40,10 @@ _SIGNATURES = {
                       _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _P],
     "ist_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                       ctypes.c_float, _I, _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _P],
+    "ist_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+                         ctypes.c_float, _I, _P],
+    "ist_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+                          ctypes.c_float, _I, _P],
     "ist_dropout_mask": [_P, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _P],
 }
 
@@ -149,12 +153,22 @@ FLASH_BWD = Kernel(
     "imagined_speech_translation_tpu_torch/csrc/flash_bwd.cu",
     "imagined_speech_translation_tpu/ops/pallas_attention.py:273",
 )
+FLASH_BWD_DQ = Kernel(
+    "flash_bwd_dq", "ist_flash_bwd_dq",
+    "imagined_speech_translation_tpu_torch/csrc/flash_bwd_split.cu",
+    "imagined_speech_translation_tpu/ops/pallas_attention.py:408",
+)
+FLASH_BWD_DKV = Kernel(
+    "flash_bwd_dkv", "ist_flash_bwd_dkv",
+    "imagined_speech_translation_tpu_torch/csrc/flash_bwd_split.cu",
+    "imagined_speech_translation_tpu/ops/pallas_attention.py:450",
+)
 DROPOUT_MASK = Kernel(
     "dropout_mask", "ist_dropout_mask",
     "imagined_speech_translation_tpu_torch/csrc/dropout_mask.cu",
     "tools/tpu_kernel_check.py:190",
 )
-KERNELS = (SOSFILT, FLASH_FWD, FLASH_BWD, DROPOUT_MASK)
+KERNELS = (SOSFILT, FLASH_FWD, FLASH_BWD, FLASH_BWD_DQ, FLASH_BWD_DKV, DROPOUT_MASK)
 
 
 def reset_launch_counts() -> None:

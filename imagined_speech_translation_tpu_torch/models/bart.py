@@ -12,6 +12,7 @@ The teacher-forced path also trains: with a ``generator`` the embedding,
 residual and FFN activations drop out at ``cfg.dropout`` and attention
 probabilities at ``cfg.attention_dropout``, as the JAX module does with
 ``train=True``; ``return_hidden`` also returns the last decoder states.
+``cross_entropy_loss`` is the token-level loss of the teacher-forced logits.
 """
 
 from __future__ import annotations
@@ -172,3 +173,20 @@ class BartDecoderModel(nn.Module):
              "v": torch.zeros(shape, dtype=dtype, device=device), "index": 0}
             for _ in range(self.cfg.decoder_layers)
         ]
+
+
+def cross_entropy_loss(logits, labels, *, label_smoothing: float = 0.0):
+    """Token-level CE with a ``-100`` ignore index (HF semantics: the mean
+    over non-ignored tokens, divided by ``max(n_valid, 1)``), on float32
+    log-probabilities, with optional label smoothing.  Returns
+    ``(loss, n_valid)``."""
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    if label_smoothing > 0.0:
+        smooth = -logp.mean(dim=-1)
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    nll = torch.where(valid, nll, 0.0)
+    n = valid.sum().clamp_min(1)
+    return nll.sum() / n, valid.sum()

@@ -5,11 +5,14 @@ Port of ``imagined_speech_translation_tpu.ops.pallas_attention``'s
 ``flash_attention`` and its custom VJP ``_flash_core``.  For tensors on the
 card the forward launches ``csrc/flash_fwd.cu`` and saves ``q, k, v``, the
 output, the base-2 logsumexp and the dropout seed; the backward computes
-``delta = rowsum(dO * O)`` in float32 and launches the fused backward
-``csrc/flash_bwd.cu``, which regenerates the dropout mask.  With dropout
-rate 0 the backward runs the same fused kernel: the JAX package dispatches
-rate 0 to its split dQ / dKV kernels, which are not ported yet.  For tensors
-on the CPU ``flash_attention`` runs ``flash_attention_reference`` (the plain
+``delta = rowsum(dO * O)`` in float32 and dispatches as ``_flash_core_bwd``
+does (:func:`backward_route`): with dropout it launches the fused backward
+``csrc/flash_bwd.cu``, which regenerates the mask; at rate 0 the split
+kernels of ``csrc/flash_bwd_split.cu``, dQ and then dK/dV, whose results do
+not depend on launch timing (the fused kernel adds dQ with atomics).  The
+split kernels regenerate no mask, so their tiles are their own and
+``dropout_blocks`` binds only the rate > 0 path.  For tensors on the CPU
+``flash_attention`` runs ``flash_attention_reference`` (the plain
 softmax(QK^T)V with the same keep-mask), and autograd differentiates it.
 """
 
@@ -19,7 +22,7 @@ import math
 
 import torch
 
-from .._kernels import FLASH_BWD, FLASH_FWD
+from .._kernels import FLASH_BWD, FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD
 from .dropout_mask import dropout_blocks, dropout_keep_mask_reference, dropout_threshold
 
 LOG2E = math.log2(math.e)
@@ -93,10 +96,38 @@ def _forward(q, k, v, scale, drop):
     return out, lse
 
 
-def _backward(q, k, v, out, lse, dout, scale, drop):
+def backward_route(dropout_rate: float) -> tuple[str, ...]:
+    """The kernels the backward launches at ``dropout_rate``, in order, as
+    ``_flash_core_bwd`` picks them: the fused kernel when dropout is on (each
+    tile's mask drawn once for all three gradients), the split dQ and dK/dV
+    kernels at rate 0."""
+    if dropout_rate > 0.0:
+        return (FLASH_BWD.name,)
+    return (FLASH_BWD_DQ.name, FLASH_BWD_DKV.name)
+
+
+def _check_backward(q, k, v, dout, lse, delta) -> None:
+    _check(q, k, v)
+    b, h, s_q, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device or (
+        not dout.is_contiguous()
+    ):
+        raise ValueError(f"flash backward: dout {dout.dtype} {tuple(dout.shape)} on "
+                         f"{dout.device} does not match q")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b * h, s_q) or t.dtype != torch.float32 or t.device != q.device or (
+            not t.is_contiguous()
+        ):
+            raise ValueError(f"flash backward: {name} must be contiguous float32 "
+                             f"{(b * h, s_q)} on {q.device}, got {t.dtype} {tuple(t.shape)}")
+
+
+def backward_fused(q, k, v, dout, lse, delta, scale, drop):
+    """dQ, dK, dV from the fused kernel over contiguous ``(B, H, S, D)``
+    ``q, k, v, dout`` of one dtype on the card, ``lse`` and ``delta``
+    float32 ``(B*H, S_q)``, and ``drop = (rate, seed, block_q, block_k)``."""
+    _check_backward(q, k, v, dout, lse, delta)
     b, h, s_q, d = q.shape
-    delta = (dout.float() * out.float()).sum(dim=-1).reshape(b * h, s_q)
-    dout = dout.to(q.dtype).contiguous()
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     FLASH_BWD.launch(
@@ -106,6 +137,50 @@ def _backward(q, k, v, out, lse, dout, scale, drop):
         *_dropout_args(drop), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dq.to(q.dtype), dk, dv
+
+
+def _split_args(q, k, v, dout, lse, delta, scale):
+    """Input pointers and sizes of the split kernels' C entry points."""
+    _check_backward(q, k, v, dout, lse, delta)
+    b, h, s_q, d = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    dims = (b * h, s_q, k.shape[2], d, float(scale) * LOG2E, float(scale), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return ptrs, dims
+
+
+def backward_dq(q, k, v, dout, lse, delta, scale):
+    """dQ from the split dQ kernel (dropout off), on the inputs of
+    :func:`backward_fused`."""
+    ptrs, dims = _split_args(q, k, v, dout, lse, delta, scale)
+    dq = torch.empty_like(q)
+    FLASH_BWD_DQ.launch(*ptrs, dq.data_ptr(), *dims)
+    return dq
+
+
+def backward_dkv(q, k, v, dout, lse, delta, scale):
+    """dK, dV from the split dK/dV kernel (dropout off), on the inputs of
+    :func:`backward_fused`."""
+    ptrs, dims = _split_args(q, k, v, dout, lse, delta, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    FLASH_BWD_DKV.launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
+    return dk, dv
+
+
+def backward_split(q, k, v, dout, lse, delta, scale):
+    """dQ, dK, dV from the split kernels: dQ first, then dK and dV."""
+    return (backward_dq(q, k, v, dout, lse, delta, scale),
+            *backward_dkv(q, k, v, dout, lse, delta, scale))
+
+
+def _backward(q, k, v, out, lse, dout, scale, drop):
+    b, h, s_q, d = q.shape
+    delta = (dout.float() * out.float()).sum(dim=-1).reshape(b * h, s_q)
+    dout = dout.to(q.dtype).contiguous()
+    if backward_route(drop[0]) == (FLASH_BWD.name,):
+        return backward_fused(q, k, v, dout, lse, delta, scale, drop)
+    return backward_split(q, k, v, dout, lse, delta, scale)
 
 
 class _FlashAttention(torch.autograd.Function):

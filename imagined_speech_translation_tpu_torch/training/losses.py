@@ -2,7 +2,8 @@
 
 Port of ``imagined_speech_translation_tpu.training.losses``:
 
-* label-smoothed CE with a ``-100`` ignore mask;
+* label-smoothed CE with a ``-100`` ignore mask (``models.bart.
+  cross_entropy_loss``, which the JAX package keeps twice);
 * alignment: symmetric InfoNCE between projected EEG features and
   mask-pooled decoder states at temperature ``tau``;
 * bag of words: BCE-with-logits from EEG features onto the multi-hot of the
@@ -26,21 +27,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import LossConfig
+from ..models.bart import cross_entropy_loss
 
 
-def label_smoothed_ce(logits, labels, *, label_smoothing: float = 0.0):
-    """Mean CE over non-``-100`` tokens (HF semantics).  Returns
-    ``(loss, n_valid)``."""
-    valid = labels != -100
-    safe = torch.where(valid, labels, 0)
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
-    if label_smoothing > 0.0:
-        smooth = -logp.mean(dim=-1)
-        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
-    nll = torch.where(valid, nll, 0.0)
-    n = valid.sum().clamp_min(1)
-    return nll.sum() / n, valid.sum()
+# the training package's name for the same function
+label_smoothed_ce = cross_entropy_loss
 
 
 def _promoted(*ts):

@@ -97,8 +97,10 @@ def test_cpu_paths_count_no_launches():
     q, k, v = (t.requires_grad_() for t in map(torch.from_numpy, _qkv(s=128, d=32, seed=5)))
     dot_product_attention(q, k, v, dropout_rate=0.1,
                           generator=torch.Generator().manual_seed(0)).sum().backward()
+    dot_product_attention(q, k, v).sum().backward()  # rate 0: the split kernels on the card
     tile_keep_mask(3, 0, 0, 0, block_q=128, block_k=128, rate=0.1, device="cpu")
     SignalFrontend().preprocess(torch.zeros((2, 3, 50)))
     assert _kernels.launch_counts() == {
-        "sosfilt": 0, "flash_fwd": 0, "flash_bwd": 0, "dropout_mask": 0,
+        "sosfilt": 0, "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "dropout_mask": 0,
     }
