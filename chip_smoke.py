@@ -10,12 +10,17 @@ Phases, each failing loudly (non-zero exit, no final line):
    source, in parallel);
 3. kernels: each kernel against its plain PyTorch twin on the card, at the
    shapes the serving path gives it, with times;
-4. train kernels: at the training shapes, the dropout keep-mask probe bit for
-   bit, the flash forward with dropout 0.1 (max |err| / max |ref| within
-   1e-4 f32 / 1e-2 bf16, a bound that the plain version without the mask or
-   with another seed's mask must exceed), and the fused flash backward
-   (rates 0 and 0.1) against autograd through the plain version, in float32
-   and bfloat16, with times beside ``F.scaled_dot_product_attention``'s;
+4. train kernels: the bf16 backward's ptxas report (no spills) and its
+   SASS (dQ by 4-float vector reductions only, none without dQ); at the
+   training shapes, the dropout keep-mask probe bit for bit, the flash
+   forward with dropout 0.1 (max |err| / max |ref| within 1e-4 f32 / 1e-2
+   bf16, a bound that the plain version without the mask or with another
+   seed's mask must exceed), and the fused flash backward (rates 0 and 0.1)
+   against autograd through the plain version, in float32 and bfloat16,
+   with times beside ``F.scaled_dot_product_attention``'s; the bf16
+   backward at every head dim 16-256 that is a multiple of 16, and with
+   logical dropout tiles that are not multiples of its own, on ragged
+   lengths; two launches of the bf16 split dK/dV kernel bit-identical;
 4b. split kernels: the rate-0 backward's dQ and dK/dV kernels at the
    eval-mode gradient's shapes and at head dims 8-192, in float32 and
    bfloat16, against autograd through the plain version in float32 on the
@@ -51,6 +56,7 @@ its own launch count is 0 on both paths.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -191,7 +197,8 @@ def phase_kernels():
             ))
             log(f"[kernels] flash_fwd ({64 * heads}, 1655, {d}) {name}: max|err| "
                 f"{err:.3e} (bound {bound:.0e}), lse max|err| {lse_err:.3e}; "
-                f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
+                f"kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms "
+                f"({ms / lib:.2f}x), bound {least:.3f} ms ({by})")
             if not (err <= bound and lse_err <= bound):
                 raise AssertionError(f"flash_fwd disagrees with its plain twin: {err}")
             del q, k, v, out, lse, ref, ref_lse
@@ -226,14 +233,39 @@ def phase_kernels():
     return checks
 
 
+def sass_reductions(fragment: str) -> dict[str, dict[str, int]]:
+    """Global reduction and atomic instructions (SASS opcode -> count) of each
+    function of the loaded kernel library whose name contains ``fragment``,
+    as ``cuobjdump -sass`` lists them."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from imagined_speech_translation_tpu_torch import _kernels
+
+    sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", _kernels.library()._name],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if fragment in m.group(1) else None
+            if fn:
+                out[fn] = {}
+        elif fn and (m := re.search(r"\b(?:RED|ATOM)G?\.[\w.]+", line)):
+            out[fn][m.group(0)] = out[fn].get(m.group(0), 0) + 1
+    return out
+
+
 def phase_train_kernels():
     """The training path's kernels against their plain twins at its shapes
     (micro-batch 4 x 4 regions: (96, 1655, 128) self-attention and
     (48, 1655, 256) cross-scale attention): the keep-mask probe bit for bit,
     the forward with dropout 0.1, and the fused backward at rates 0 and 0.1
-    against autograd through the plain version.  Times: kernel, plain, and
-    ``F.scaled_dot_product_attention`` with the same dropout rate (a
-    yardstick only; the port never calls it)."""
+    against autograd through the plain version; then the bf16 backward at
+    every head dim it takes and with logical tiles that are not multiples
+    of its own, and the bf16 dK/dV kernel's bits over two launches.  Before
+    them, the bf16 backward's build: no spills, dQ by vector reductions.
+    Times: kernel, plain, and ``F.scaled_dot_product_attention`` with the
+    same dropout rate (a yardstick only; the port never calls it)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -247,7 +279,11 @@ def phase_train_kernels():
         dropout_blocks,
         tile_keep_mask_reference,
     )
-    from imagined_speech_translation_tpu_torch.ops.flash_attention import backward_fused
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.ops.flash_attention import (
+        backward_dkv,
+        backward_fused,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -255,6 +291,25 @@ def phase_train_kernels():
     rng = np.random.default_rng(10)
     rate, seed, S = 0.1, 1234, 1655
     checks = {"dropout_mask": [], "flash_fwd": [], "flash_bwd": []}
+
+    # the bf16 backward's Hopper kernel as ptxas built it: no spills
+    report = _kernels.ptxas_info("flash_bwd_wgmma_kernel")
+    if not report:
+        raise AssertionError("no ptxas report of flash_bwd_wgmma_kernel in the build log")
+    for entry, lines in sorted(report.items()):
+        log(f"[train-kernels] ptxas {entry}: " + "; ".join(lines))
+        spills = [int(n) for line in lines for n in re.findall(r"(\d+) bytes spill", line)]
+        if not spills or any(spills):
+            raise AssertionError(f"{entry} spills or has no spill line: {lines}")
+    # and as the card runs it: dQ (kDQ, the last template flag) only by
+    # 4-float vector reductions, the dK/dV-only kernel without any
+    for entry, ops in sorted(sass_reductions("flash_bwd_wgmma_kernel").items()):
+        dq = re.search(r"wgmma_kernelILi\d+ELb[01]ELb([01])E", entry).group(1) == "1"
+        log(f"[train-kernels] sass {entry}: global reductions {ops}")
+        vector_only = bool(ops) and all("F32x4" in op for op in ops)
+        if (dq and not vector_only) or (not dq and ops):
+            raise AssertionError(f"{entry}: global reductions {ops}, want "
+                                 + ("only F32x4 ones" if dq else "none"))
 
     # keep-mask probe: every logical tile of heads 0-3 and 95, both tilings
     for dtype in (torch.bfloat16, torch.float32):
@@ -394,7 +449,8 @@ def phase_train_kernels():
                     f"(bound {bwd_bound:.0e})"
                     + ("" if apart is None else ", against the rate-0 gradients " + " ".join(
                         f"{a:.2e}" for a in apart) + " (must exceed it)")
-                    + f"; kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa bwd {lib:.3f} ms")
+                    + f"; kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa bwd {lib:.3f} ms "
+                    f"({ms / lib:.2f}x), bound {least:.3f} ms")
                 if not max(rel) <= bwd_bound:
                     raise AssertionError(f"flash_bwd disagrees with autograd of its twin: {rel}")
                 if apart is not None and not min(apart) > bwd_bound:
@@ -425,6 +481,55 @@ def phase_train_kernels():
                 raise AssertionError(f"flash_bwd d={d} {dtype}: {rel} > {bwd_bound}")
     log("[train-kernels] flash_bwd (6, 200 x 333, d) dropout 0.1 max|err|/max|ref| by "
         "(d, dtype): " + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
+
+    # the Hopper kernel at every head dim it takes (multiples of 16 up to 256)
+    # on ragged lengths, with logical tiles that are multiples of its tiles
+    # (128 x 128: the mask's hash input hoisted per tile) and, at d = 64, 128,
+    # 256, with tiles that are not (96 x 160: the per-element mask); each
+    # within 3e-2 of autograd through the plain version, and farther than
+    # that from the plain version's rate-0 gradients
+    def rel_err(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    cases = [(d, 128, 128) for d in range(16, 257, 16)] + [(d, 96, 160) for d in (64, 128, 256)]
+    worst, nearest = {}, {}
+    for d, bq, bk in cases:
+        q = torch.from_numpy(rng.normal(size=(2, 3, 200, d)).astype(np.float32) * 0.3)
+        kv = torch.from_numpy(rng.normal(size=(2, 2, 3, 333, d)).astype(np.float32) * 0.3)
+        dout = torch.from_numpy(rng.normal(size=(2, 3, 200, d)).astype(np.float32))
+        q, k, v = (t.to(dev, torch.bfloat16).requires_grad_() for t in (q, kv[0], kv[1]))
+        dout = dout.to(dev, torch.bfloat16)
+        kw = dict(dropout_rate=rate, dropout_seed=seed, block_q=bq, block_k=bk)
+        got = torch.autograd.grad(flash_attention(q, k, v, **kw)[0], (q, k, v), dout)
+        want = torch.autograd.grad(flash_attention_reference(q, k, v, **kw)[0], (q, k, v), dout)
+        rate0 = torch.autograd.grad(flash_attention_reference(q, k, v)[0], (q, k, v), dout)
+        worst[(d, bq, bk)] = max(rel_err(a, b) for a, b in zip(got, want))
+        nearest[(d, bq, bk)] = min(rel_err(a, b) for a, b in zip(got, rate0))
+        if not worst[(d, bq, bk)] <= 3e-2 < nearest[(d, bq, bk)]:
+            raise AssertionError(f"flash_bwd bf16 d={d} tiles {bq}x{bk}: {worst[(d, bq, bk)]} "
+                                 f"from its twin, {nearest[(d, bq, bk)]} from rate 0 "
+                                 "(bound 3e-2)")
+    log("[train-kernels] flash_bwd bf16 (6, 200 x 333, d) dropout 0.1, max|err|/max|ref| "
+        "(against the rate-0 gradients, must exceed 3e-2) by (d, block_q, block_k): "
+        + ", ".join(f"{c}: {worst[c]:.1e} ({nearest[c]:.2f})" for c in cases))
+
+    # the split dK/dV kernel takes the same Hopper kernel without dQ: two
+    # launches at the eval-mode gradient's shapes give the same bits
+    for bh, d in ((192, 128), (96, 256)):
+        q, k, v, dout = (
+            torch.from_numpy(rng.normal(size=(1, bh, S, d)).astype(np.float32) * 0.3)
+            .to(dev, torch.bfloat16) for _ in range(4))
+        out, lse = flash_attention(q, k, v)
+        delta = (dout.float() * out.float()).sum(dim=-1).reshape(bh, S)
+        first = backward_dkv(q, k, v, dout, lse, delta, d**-0.5)
+        again = backward_dkv(q, k, v, dout, lse, delta, d**-0.5)
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        log(f"[train-kernels] flash_bwd_dkv ({bh}, {S}, {d}) bf16: two launches "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"split dK/dV bf16 ({bh}, {S}, {d}): two launches differ")
+        del q, k, v, dout, out, lse, delta, first, again
+    torch.cuda.empty_cache()
     return checks
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("sosfilt.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_bwd_split.cu", "dropout_mask.cu")
-HEADERS = ("dropout_mask.cuh", "flash_bwd_kv.cuh")
+HEADERS = ("dropout_mask.cuh", "flash_bwd_kv.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,7 +50,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-#: compiler output and seconds of the build that produced the loaded library
+#: compiler output of the build that produced the loaded library (kept beside
+#: it, so a later process that loads it reads the same), and that build's seconds
 build_log = ""
 build_seconds = 0.0
 
@@ -103,11 +105,15 @@ def library() -> ctypes.CDLL:
         for name in SOURCES + HEADERS:
             digest.update((CSRC / name).read_bytes())
         so = BUILD_DIR / f"libist_kernels-{digest.hexdigest()[:16]}.so"
+        log_path = so.with_suffix(".log")
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
             build_log = _build(so, f".{os.getpid()}")
             build_seconds = time.perf_counter() - t0
+            log_path.write_text(build_log)
+        elif log_path.exists():
+            build_log = log_path.read_text()
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -117,6 +123,23 @@ def library() -> ctypes.CDLL:
         lib.ist_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def ptxas_info(fragment: str) -> dict[str, list[str]]:
+    """``-Xptxas -v`` lines (registers, stack, spills) of each compiled entry
+    function whose mangled name contains ``fragment``, from the build of the
+    loaded library."""
+    out: dict[str, list[str]] = {}
+    entry = None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if fragment in m.group(1) else None
+            if entry:
+                out.setdefault(entry, [])
+        elif entry and ("registers" in line or "spill" in line):
+            out[entry].append(line.strip())
+    return out
 
 
 class Kernel:

@@ -41,15 +41,19 @@ inline DropoutMask make_dropout_mask(int on, int seed, unsigned threshold, int b
   return m;
 }
 
-__device__ __forceinline__ uint32_t dropout_hash(uint32_t seed_mix, uint32_t tile_id,
-                                                 uint32_t index) {
-  uint32_t x = index + 0x9E3779B9u * tile_id + seed_mix;
+// The hash's finaliser, applied to index + 0x9E3779B9 * tile_id + seed_mix.
+__device__ __forceinline__ uint32_t dropout_mix(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t dropout_hash(uint32_t seed_mix, uint32_t tile_id,
+                                                 uint32_t index) {
+  return dropout_mix(index + 0x9E3779B9u * tile_id + seed_mix);
 }
 
 __device__ __forceinline__ bool dropout_keep(const DropoutMask& m, int bh, int row, int col) {
@@ -60,4 +64,25 @@ __device__ __forceinline__ bool dropout_keep(const DropoutMask& m, int bh, int r
                              static_cast<uint32_t>(m.block_k) +
                          static_cast<uint32_t>(col - static_cast<int>(ki) * m.block_k);
   return dropout_hash(m.seed_mix, tile_id, index) >= m.threshold;
+}
+
+// The same bits with the division hoisted out of a kernel tile that lies
+// inside one logical tile (its first row and column, row0 and col0, are
+// multiples of tiles that divide block_q and block_k): dropout_keep(m, bh,
+// row0 + r, col0 + c) == dropout_keep_at(m, dropout_tile_base(m, bh, row0,
+// col0), r * block_k + c), by the wrapping arithmetic of the hash's input.
+__device__ __forceinline__ uint32_t dropout_tile_base(const DropoutMask& m, int bh, int row0,
+                                                      int col0) {
+  const uint32_t qi = static_cast<uint32_t>(row0 / m.block_q);
+  const uint32_t ki = static_cast<uint32_t>(col0 / m.block_k);
+  const uint32_t tile_id = (static_cast<uint32_t>(bh) * 256u + qi) * 256u + ki;
+  const uint32_t index = static_cast<uint32_t>(row0 - static_cast<int>(qi) * m.block_q) *
+                             static_cast<uint32_t>(m.block_k) +
+                         static_cast<uint32_t>(col0 - static_cast<int>(ki) * m.block_k);
+  return index + 0x9E3779B9u * tile_id + m.seed_mix;
+}
+
+__device__ __forceinline__ bool dropout_keep_at(const DropoutMask& m, uint32_t base,
+                                                uint32_t offset) {
+  return dropout_mix(base + offset) >= m.threshold;
 }

@@ -26,9 +26,9 @@
 // order, so each block owns its output tile and loops over the other axis
 // inside the block: the dQ kernel one (bh, query tile) looping over key
 // tiles, the dK/dV kernel one (bh, key tile) looping over query tiles (the
-// key-tile backward of flash_bwd_kv.cuh without its dQ atomics).  No block
-// writes another block's output and no sum depends on timing, so two launches
-// on the same inputs give the same bits.
+// key-tile backward of flash_bwd_kv.cuh without its dQ reductions; in bf16
+// its Hopper variant).  No block writes another block's output and no sum
+// depends on timing, so two launches on the same inputs give the same bits.
 //
 // Tails: key columns >= s_kv score -1e30 (P = 0) against zero K/V rows;
 // query rows >= s_q read no lse or delta and contribute nothing.  Rounding:
@@ -226,6 +226,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 // ---------------------------------------------------------------------------
 // dQ, bf16 tensor-core version (d a multiple of 16, 16-byte aligned tensors)
 // ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // four warps
+constexpr int kMmaBQ = 64;        // query rows per block: 16 per warp
 
 template <int BK>
 size_t dq_mma_smem_bytes(int d) {

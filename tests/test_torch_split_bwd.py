@@ -114,3 +114,35 @@ def test_ctypes_signatures_match_the_c_entry_points():
     for name, argtypes in _kernels._SIGNATURES.items():
         assert found.get(name) == len(argtypes), name
     assert {"ist_flash_bwd_dq", "ist_flash_bwd_dkv"} <= set(found)
+
+
+def test_library_hash_covers_every_included_header():
+    """An edit to any header a kernel source includes must rebuild the
+    library, so every local include is one of ``_kernels.HEADERS``."""
+    included = set()
+    for name in _kernels.SOURCES + _kernels.HEADERS:
+        included |= set(re.findall(r'^#include "([^"]+)"', (_kernels.CSRC / name).read_text(),
+                                   re.M))
+    assert included <= set(_kernels.HEADERS)
+    assert "sm90.cuh" in included
+
+
+def test_ptxas_info_groups_the_lines_of_each_entry(monkeypatch):
+    log = "\n".join([
+        "--- flash_bwd.cu",
+        "ptxas info    : Compiling entry function '_Z4other' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z4other",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_Z22flash_bwd_wgmma_kernelILi2E' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z22flash_bwd_wgmma_kernelILi2E",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 3 barriers",
+    ])
+    monkeypatch.setattr(_kernels, "build_log", log)
+    assert _kernels.ptxas_info("flash_bwd_wgmma_kernel") == {
+        "_Z22flash_bwd_wgmma_kernelILi2E": [
+            "0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+            "ptxas info    : Used 168 registers, used 3 barriers",
+        ]}
+    assert _kernels.ptxas_info("no_such_kernel") == {}

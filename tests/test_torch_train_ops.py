@@ -88,28 +88,40 @@ def test_tile_id_limit_raises_like_jax():
                         dropout_rate=0.1, dropout_seed=1, block_q=128)
 
 
-@pytest.fixture(scope="module")
-def qkvg():
+def _qkvg(shape, s_kv):
+    """q, k, v and the output gradient for a ``(b, h, s_q, d)`` query shape."""
     rng = np.random.default_rng(0)
-    return [rng.normal(size=(2, 2, 200, 40)).astype(np.float32) for _ in range(4)]
+    b, h, _, d = shape
+    kv = (b, h, s_kv, d)
+    return [rng.normal(size=s).astype(np.float32) for s in (shape, kv, kv, shape)]
 
 
-@pytest.mark.parametrize("rate", [0.1, 0.0])
-def test_flash_with_dropout_matches_interpret_kernels(qkvg, rate):
-    q, k, v, g = qkvg
+# lengths that are not multiples of 64 or 128 (the bf16 CUDA kernel's query
+# and key tiles): partial tiles at both ends and a query range shorter than
+# one tile, with the keep-mask's logical tiles cut at the same edges
+@pytest.mark.parametrize("rate, shape, s_kv", [
+    pytest.param(0.1, (2, 2, 200, 40), 200, id="0.1"),
+    pytest.param(0.0, (2, 2, 200, 40), 200, id="0.0"),
+    pytest.param(0.1, (1, 2, 193, 16), 193, id="0.1-s193-d16"),
+    pytest.param(0.0, (1, 2, 193, 16), 193, id="0.0-s193-d16"),
+    pytest.param(0.1, (1, 1, 77, 32), 193, id="0.1-q77-kv193-d32"),
+])
+def test_flash_with_dropout_matches_interpret_kernels(rate, shape, s_kv):
+    q, k, v, g = _qkvg(shape, s_kv)
+    b, h, s_q, d = shape
     seed = 123 if rate else None
     kw = dict(dropout_rate=rate, dropout_seed=seed, block_q=128, block_k=128)
     out, vjp = jax.vjp(lambda *a: pa.flash_attention(*a, **kw, interpret=True), q, k, v)
     dq, dk, dv = vjp(g)
     seed_row = jnp.full((1, 128), seed or 0, jnp.int32)
-    _, lse = pa._fwd_call(q.reshape(4, 200, 40), k.reshape(4, 200, 40), v.reshape(4, 200, 40),
-                          seed_row, block_q=128, block_k=128, kv_len=200, scale=40**-0.5,
-                          dropout_rate=rate, interpret=True)
+    _, lse = pa._fwd_call(q.reshape(b * h, s_q, d), k.reshape(b * h, s_kv, d),
+                          v.reshape(b * h, s_kv, d), seed_row, block_q=128, block_k=128,
+                          kv_len=s_kv, scale=d**-0.5, dropout_rate=rate, interpret=True)
     tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
     tout, tlse = flash_attention(tq, tk, tv, **kw)
     grads = torch.autograd.grad(tout, (tq, tk, tv), torch.from_numpy(g))
     np.testing.assert_allclose(tout.detach().numpy(), np.asarray(out), atol=1e-5)
-    np.testing.assert_allclose(tlse.detach().numpy(), np.asarray(lse)[:, 0, :200], atol=1e-5)
+    np.testing.assert_allclose(tlse.detach().numpy(), np.asarray(lse)[:, 0, :s_q], atol=1e-5)
     for got, want in zip(grads, (dq, dk, dv)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
