@@ -9,7 +9,12 @@ Phases, each failing loudly (non-zero exit, no final line):
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per
    source, in parallel);
 3. kernels: each kernel against its plain PyTorch twin on the card, at the
-   shapes the serving path gives it, with times;
+   shapes the serving path gives it, with times; the bf16 forward's ptxas
+   report (no spills); the forward's out within max |err| / max |ref| 1e-4
+   f32 / 1e-2 bf16 of the twin in float32 on the same input values, at flat
+   and peaky inputs, a bound that the twin with V's rows permuted and an
+   all-zero output must exceed; and at head dims 8-256 (12, 24 and 100
+   among them; in bf16 every multiple of 16) on ragged lengths;
 4. train kernels: the bf16 backward's ptxas report (no spills) and its
    SASS (dQ by 4-float vector reductions only, none without dQ); at the
    training shapes, the dropout keep-mask probe bit for bit, the flash
@@ -18,11 +23,13 @@ Phases, each failing loudly (non-zero exit, no final line):
    seed's mask must exceed), and the fused flash backward (rates 0 and 0.1)
    against autograd through the plain version, in float32 and bfloat16,
    with times beside ``F.scaled_dot_product_attention``'s; the bf16
-   backward at every head dim 16-256 that is a multiple of 16, and with
-   logical dropout tiles that are not multiples of its own, on ragged
-   lengths; two launches of the bf16 split dK/dV kernel bit-identical;
+   forward and backward at every head dim 16-256 that is a multiple of 16,
+   and with logical dropout tiles that are not multiples of their own, on
+   ragged lengths (the backward also at head dims 12, 24 and 100); two
+   launches of the bf16 split dK/dV kernel bit-identical;
 4b. split kernels: the rate-0 backward's dQ and dK/dV kernels at the
-   eval-mode gradient's shapes and at head dims 8-192, in float32 and
+   eval-mode gradient's shapes and at head dims 8-192 (12, 24 and 100
+   among them), in float32 and
    bfloat16, against autograd through the plain version in float32 on the
    same input values (max |err| / max |ref| within 1e-4 f32 / 2e-2 bf16, a
    bound the gradients without the delta term must exceed); two launches
@@ -44,7 +51,8 @@ Phases, each failing loudly (non-zero exit, no final line):
 10. profile train: ``cli/profile.py --what train`` at full width
    (``default_config()``, B = 8, T = 1651, float32, 3 traced iterations
    after one warm-up): finite gradients, 5 flash forward, 5 split dQ and 5
-   split dK/dV launches per iteration and no fused backward.
+   split dK/dV launches per iteration and no fused backward; then the same
+   with ``--tiny`` (head dims 12 and 24) for one iteration.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
@@ -101,6 +109,38 @@ def least_time(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# the serving forward's bounds: max |err| / max |ref| against the plain twin
+# in float32 on the same input values, and the absolute bound on out and lse
+FWD_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+FWD_ABS = {"float32": 5e-4, "bfloat16": 3e-2}
+
+
+def forward_check(q, k, v, rel_bound, **kw):
+    """``flash_attention(q, k, v, **kw)`` against the plain twin in float32
+    on the same input values: max |err| of out and lse, max |ref|, max |err|
+    / max |ref|, and the same measure for two wrong outputs that the check
+    must reject, the twin with V's rows permuted along the key axis and
+    zeros."""
+    import torch
+
+    from imagined_speech_translation_tpu_torch.ops import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    out, lse = flash_attention(q, k, v, **kw)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref, ref_lse = flash_attention_reference(qf, kf, vf, **kw)
+    top = ref.abs().max().item()
+    err = (out.float() - ref).abs().max().item()
+    perm = torch.randperm(v.shape[2], generator=torch.Generator().manual_seed(0))
+    permuted = flash_attention_reference(qf, kf, vf[:, :, perm.to(v.device)], **kw)[0]
+    return dict(max_abs_err=err, max_abs_ref=top, rel_err=err / top,
+                lse_max_abs_err=(lse - ref_lse).abs().max().item(),
+                rel_err_permuted_v=(permuted - ref).abs().max().item() / top,
+                rel_err_zeros=(torch.zeros_like(ref) - ref).abs().max().item() / top)
+
+
 def phase_device():
     import torch
 
@@ -137,6 +177,7 @@ def phase_kernels():
 
     import torch.nn.functional as F
 
+    from imagined_speech_translation_tpu_torch import _kernels
     from imagined_speech_translation_tpu_torch.frontend import (
         SignalFrontend,
         sosfilt,
@@ -172,64 +213,82 @@ def phase_kernels():
     if not err <= bound:
         raise AssertionError(f"sosfilt disagrees with its plain twin: {err} > {bound}")
 
-    # flash forward: (b*h, 1655, d) for the self-attention (d=128, 6 heads)
-    # and the shared cross-scale attention (d=256, 3 heads), batch 16 x 4 regions
-    for heads, d in ((6, 128), (3, 256)):
-        for dtype, bound in ((torch.float32, 5e-4), (torch.bfloat16, 3e-2)):
-            shape = (64, heads, 1655, d)
-            q, k, v = (
-                torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3)
-                .to(dev, dtype) for _ in range(3)
-            )
-            out, lse = flash_attention(q, k, v)
-            ref, ref_lse = flash_attention_reference(q, k, v)
-            err = (out.float() - ref.float()).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
-            ms = cuda_ms(lambda: flash_attention(q, k, v), iters=5)
-            plain = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=5)
-            name = str(dtype).removeprefix("torch.")
-            least, by = least_time(4 * q.numel() * 1655, 4 * q.numel() * q.element_size(), name)
-            checks["flash_fwd"].append(dict(
-                shape=[64 * heads, 1655, d], dtype=name, max_abs_err=err,
-                lse_max_abs_err=lse_err, bound=bound, ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=least, bound_by=by,
-            ))
-            log(f"[kernels] flash_fwd ({64 * heads}, 1655, {d}) {name}: max|err| "
-                f"{err:.3e} (bound {bound:.0e}), lse max|err| {lse_err:.3e}; "
-                f"kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms "
-                f"({ms / lib:.2f}x), bound {least:.3f} ms ({by})")
-            if not (err <= bound and lse_err <= bound):
-                raise AssertionError(f"flash_fwd disagrees with its plain twin: {err}")
-            del q, k, v, out, lse, ref, ref_lse
-    torch.cuda.empty_cache()
+    # the bf16 forward's Hopper kernel as ptxas built it: no spills
+    report = _kernels.ptxas_info("flash_fwd_wgmma_kernel")
+    if not report:
+        raise AssertionError("no ptxas report of flash_fwd_wgmma_kernel in the build log")
+    for entry, lines in sorted(report.items()):
+        log(f"[kernels] ptxas {entry}: " + "; ".join(lines))
+        spills = [int(n) for line in lines for n in re.findall(r"(\d+) bytes spill", line)]
+        if not spills or any(spills):
+            raise AssertionError(f"{entry} spills or has no spill line: {lines}")
 
-    # other head dims (96/192: reference heads (8,4,4)) and ragged lengths,
-    # correctness only: both dtypes, both kernel variants (bf16 with d % 16
-    # takes the tensor cores, other d the FMA path)
+    # flash forward: (b*h, 1655, d) for the self-attention (d=128, 6 heads)
+    # and the shared cross-scale attention (d=256, 3 heads), batch 16 x 4
+    # regions.  Out against the plain twin in float32 on the same input
+    # values, max |err| / max |ref| within FWD_REL (and the absolute bound
+    # on out and lse), at flat inputs (q, k ~ N(0, 0.3^2): a softmax so even
+    # that max |ref| ~ 0.03 with v ~ N(0, 0.3^2)) and peaky ones (q, k ~
+    # N(0, 1): max |ref| ~ 0.15); the twin with V's rows permuted along the
+    # key axis and an all-zero output must lie farther.
+    for heads, d in ((6, 128), (3, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            bound, rel_bound = FWD_ABS[name], FWD_REL[name]
+            shape = (64, heads, 1655, d)
+            for inputs, qk_scale in (("flat", 0.3), ("peaky", 1.0)):
+                q, k = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * qk_scale)
+                        .to(dev, dtype) for _ in range(2))
+                v = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3).to(dev, dtype)
+                c = forward_check(q, k, v, rel_bound)
+                ms = cuda_ms(lambda: flash_attention(q, k, v), iters=5)
+                plain = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5)
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=5)
+                least, by = least_time(4 * q.numel() * 1655, 4 * q.numel() * q.element_size(),
+                                       name)
+                checks["flash_fwd"].append(dict(
+                    shape=[64 * heads, 1655, d], dtype=name, inputs=inputs, bound=bound,
+                    rel_bound=rel_bound, **c, ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=least, bound_by=by,
+                ))
+                log(f"[kernels] flash_fwd ({64 * heads}, 1655, {d}) {name} {inputs}: max|err| "
+                    f"{c['max_abs_err']:.3e} (max|ref| {c['max_abs_ref']:.3e}), lse max|err| "
+                    f"{c['lse_max_abs_err']:.3e} (bound {bound:.0e}); max|err|/max|ref| "
+                    f"{c['rel_err']:.2e} (bound {rel_bound:.0e}), the twin with V permuted "
+                    f"{c['rel_err_permuted_v']:.2e} and zeros {c['rel_err_zeros']:.2e} (must "
+                    f"exceed it); kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms "
+                    f"({ms / lib:.2f}x), bound {least:.3f} ms ({by})")
+                if not (c["max_abs_err"] <= bound and c["lse_max_abs_err"] <= bound
+                        and c["rel_err"] <= rel_bound):
+                    raise AssertionError(f"flash_fwd disagrees with its plain twin: {c}")
+                if not min(c["rel_err_permuted_v"], c["rel_err_zeros"]) > rel_bound:
+                    raise AssertionError(f"flash_fwd check cannot tell a wrong output from the "
+                                         f"right one: {c}")
+                del q, k, v
+                torch.cuda.empty_cache()
+
+    # other head dims and ragged lengths (200 queries x 333 keys), peaky
+    # inputs, correctness only: both dtypes; 8-100 and the reference heads'
+    # (8,4,4) 96/192 include head dims that are not multiples of 16 (the
+    # CUDA-core variant also in bf16) and of 8 (12, 24, 100: cli/profile.py
+    # --tiny has 12 and 24); and in bf16 every head dim the Hopper kernel
+    # takes, 16-256 in steps of 16
     worst = {}
-    for d in (8, 40, 48, 96, 192):
-        for dtype, bound in ((torch.float32, 5e-4), (torch.bfloat16, 3e-2)):
-            q = torch.from_numpy(rng.normal(size=(2, 3, 200, d)).astype(np.float32) * 0.3)
-            kv = torch.from_numpy(rng.normal(size=(2, 2, 3, 333, d)).astype(np.float32) * 0.3)
-            q, k, v = q.to(dev, dtype), kv[0].to(dev, dtype), kv[1].to(dev, dtype)
-            out, lse = flash_attention(q, k, v)
-            ref, ref_lse = flash_attention_reference(q, k, v)
-            err = max((out.float() - ref.float()).abs().max().item(),
-                      (lse - ref_lse).abs().max().item())
-            worst[(d, str(dtype).removeprefix("torch."))] = err
-            if not err <= bound:
-                raise AssertionError(f"flash_fwd d={d} {dtype}: {err} > {bound}")
-    log(f"[kernels] flash_fwd (6, 200 x 333, d) max|err| by (d, dtype): "
+    cases = [(d, dt) for d in (8, 12, 24, 40, 48, 96, 100, 192)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(d, torch.bfloat16) for d in range(16, 257, 16)]
+    for d, dtype in cases:
+        name = str(dtype).removeprefix("torch.")
+        q = torch.from_numpy(rng.normal(size=(2, 3, 200, d)).astype(np.float32))
+        kv = torch.from_numpy(rng.normal(size=(2, 2, 3, 333, d)).astype(np.float32))
+        q, k, v = q.to(dev, dtype), kv[0].to(dev, dtype), kv[1].to(dev, dtype)
+        c = forward_check(q, k, v, FWD_REL[name])
+        worst[(d, name)] = c["rel_err"]
+        if not (c["rel_err"] <= FWD_REL[name] < min(c["rel_err_permuted_v"], c["rel_err_zeros"])
+                and c["lse_max_abs_err"] <= FWD_ABS[name]):
+            raise AssertionError(f"flash_fwd d={d} {dtype}: {c}")
+    log("[kernels] flash_fwd (6, 200 x 333, d) max|err|/max|ref| by (d, dtype): "
         + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
-    # a head dim that is not a multiple of 8 is refused, not run
-    q = torch.zeros((1, 1, 128, 100), device=dev)
-    try:
-        flash_attention(q, q, q)
-    except ValueError as e:
-        log(f"[kernels] flash_fwd d=100 refused: {e}")
-    else:
-        raise AssertionError("flash_fwd accepted head dim 100")
     return checks
 
 
@@ -459,11 +518,12 @@ def phase_train_kernels():
             del q, k, v, dout
             torch.cuda.empty_cache()
 
-    # other head dims (96/192: reference heads (8,4,4)) and ragged lengths,
-    # correctness only: both dtypes and both backward variants (bf16 with
-    # d % 16 == 0 takes the tensor cores, other d the CUDA cores)
+    # other head dims (96/192: reference heads (8,4,4); 12/24: cli/profile.py
+    # --tiny) and ragged lengths, correctness only: both dtypes and both
+    # backward variants (bf16 with d % 16 == 0 takes the tensor cores, other
+    # d, 12, 24 and 100 among them, the CUDA cores)
     worst = {}
-    for d in (8, 40, 48, 96, 192):
+    for d in (8, 12, 24, 40, 48, 96, 100, 192):
         for dtype, bwd_bound in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
             q = torch.from_numpy(rng.normal(size=(2, 3, 200, d)).astype(np.float32) * 0.3)
             kv = torch.from_numpy(rng.normal(size=(2, 2, 3, 333, d)).astype(np.float32) * 0.3)
@@ -482,17 +542,19 @@ def phase_train_kernels():
     log("[train-kernels] flash_bwd (6, 200 x 333, d) dropout 0.1 max|err|/max|ref| by "
         "(d, dtype): " + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
 
-    # the Hopper kernel at every head dim it takes (multiples of 16 up to 256)
-    # on ragged lengths, with logical tiles that are multiples of its tiles
-    # (128 x 128: the mask's hash input hoisted per tile) and, at d = 64, 128,
-    # 256, with tiles that are not (96 x 160: the per-element mask); each
-    # within 3e-2 of autograd through the plain version, and farther than
-    # that from the plain version's rate-0 gradients
+    # the Hopper kernels (forward and backward) at every head dim they take
+    # (multiples of 16 up to 256) on ragged lengths, with logical tiles that
+    # are multiples of their tiles (128 x 128: the mask's hash input hoisted
+    # per tile) and, at d = 64, 128, 256, with tiles that are not (96 x 160:
+    # the per-element mask); the forward's out within 1e-2 (max |err| / max
+    # |ref|) of the plain version in float32 on the same input values, the
+    # gradients within 3e-2 of autograd through the plain version, and each
+    # farther than its bound from the plain version's rate-0 out or gradients
     def rel_err(a, b):
         return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
     cases = [(d, 128, 128) for d in range(16, 257, 16)] + [(d, 96, 160) for d in (64, 128, 256)]
-    worst, nearest = {}, {}
+    worst, nearest, fwd = {}, {}, {}
     for d, bq, bk in cases:
         q = torch.from_numpy(rng.normal(size=(2, 3, 200, d)).astype(np.float32) * 0.3)
         kv = torch.from_numpy(rng.normal(size=(2, 2, 3, 333, d)).astype(np.float32) * 0.3)
@@ -500,15 +562,26 @@ def phase_train_kernels():
         q, k, v = (t.to(dev, torch.bfloat16).requires_grad_() for t in (q, kv[0], kv[1]))
         dout = dout.to(dev, torch.bfloat16)
         kw = dict(dropout_rate=rate, dropout_seed=seed, block_q=bq, block_k=bk)
-        got = torch.autograd.grad(flash_attention(q, k, v, **kw)[0], (q, k, v), dout)
+        out = flash_attention(q, k, v, **kw)[0]
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        with torch.no_grad():
+            qf, kf, vf = q.float(), k.float(), v.float()
+            fwd[(d, bq, bk)] = (rel_err(out, flash_attention_reference(qf, kf, vf, **kw)[0]),
+                                rel_err(out, flash_attention_reference(qf, kf, vf)[0]))
         want = torch.autograd.grad(flash_attention_reference(q, k, v, **kw)[0], (q, k, v), dout)
         rate0 = torch.autograd.grad(flash_attention_reference(q, k, v)[0], (q, k, v), dout)
         worst[(d, bq, bk)] = max(rel_err(a, b) for a, b in zip(got, want))
         nearest[(d, bq, bk)] = min(rel_err(a, b) for a, b in zip(got, rate0))
+        if not fwd[(d, bq, bk)][0] <= FWD_REL["bfloat16"] < fwd[(d, bq, bk)][1]:
+            raise AssertionError(f"flash_fwd bf16 d={d} tiles {bq}x{bk}: {fwd[(d, bq, bk)]} "
+                                 "from its twin and from rate 0 (bound 1e-2)")
         if not worst[(d, bq, bk)] <= 3e-2 < nearest[(d, bq, bk)]:
             raise AssertionError(f"flash_bwd bf16 d={d} tiles {bq}x{bk}: {worst[(d, bq, bk)]} "
                                  f"from its twin, {nearest[(d, bq, bk)]} from rate 0 "
                                  "(bound 3e-2)")
+    log("[train-kernels] flash_fwd bf16 (6, 200 x 333, d) dropout 0.1, max|err|/max|ref| "
+        "(against the rate-0 out, must exceed 1e-2) by (d, block_q, block_k): "
+        + ", ".join(f"{c}: {fwd[c][0]:.1e} ({fwd[c][1]:.2f})" for c in cases))
     log("[train-kernels] flash_bwd bf16 (6, 200 x 333, d) dropout 0.1, max|err|/max|ref| "
         "(against the rate-0 gradients, must exceed 3e-2) by (d, block_q, block_k): "
         + ", ".join(f"{c}: {worst[c]:.1e} ({nearest[c]:.2f})" for c in cases))
@@ -668,13 +741,15 @@ def phase_split_kernels():
             del q, k, v, dout, delta, args, qg, kg, vg
             torch.cuda.empty_cache()
 
-    # other head dims (96/192: reference heads (8,4,4)) and ragged lengths,
-    # through flash_attention's autograd at rate 0, which must launch the
-    # split kernels and not the fused one; both dtypes and both variants
-    # (bf16 with d % 16 == 0 takes the tensor cores, other d the CUDA cores)
+    # other head dims (96/192: reference heads (8,4,4); 12/24: cli/profile.py
+    # --tiny) and ragged lengths, through flash_attention's autograd at rate
+    # 0, which must launch the split kernels and not the fused one; both
+    # dtypes and both variants (bf16 with d % 16 == 0 takes the tensor cores,
+    # other d, 12, 24 and 100 among them, the CUDA cores)
     worst = {}
+    head_dims = (8, 12, 24, 40, 48, 96, 100, 192)
     _kernels.reset_launch_counts()
-    for d in (8, 40, 48, 96, 192):
+    for d in head_dims:
         for dtype, bound in bounds.items():
             q, k, v, dout = inputs(2, 3, 200, 333, d, dtype)
             qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
@@ -687,9 +762,12 @@ def phase_split_kernels():
                 raise AssertionError(f"split backward d={d} {dtype}: {err} (without delta "
                                      f"{apart}), bound {bound}")
     launches = _kernels.launch_counts()
-    if launches["flash_bwd"] or launches["flash_bwd_dq"] != 10 or launches["flash_bwd_dkv"] != 10:
-        raise AssertionError(f"rate-0 autograd launched {launches}, want 10 split dQ and dK/dV "
-                             "and no fused backward")
+    want = len(head_dims) * len(bounds)
+    if launches["flash_bwd"] or launches["flash_bwd_dq"] != want or (
+        launches["flash_bwd_dkv"] != want
+    ):
+        raise AssertionError(f"rate-0 autograd launched {launches}, want {want} split dQ and "
+                             "dK/dV and no fused backward")
     log("[split-kernels] (6, 200 x 333, d) rate 0 max|err|/max|ref| by (d, dtype): "
         + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
     return checks
@@ -1025,6 +1103,20 @@ def phase_profile_train(smi: str):
     if any(launches[k] != n * runs for k, n in want.items()):
         raise AssertionError(f"profile train launched {launches} in {runs} runs, want {want} "
                              "per run")
+
+    # the JAX script's --tiny config (head dims 12 and 24, which the kernels
+    # take on their CUDA-core variants), one warm-up and one traced iteration
+    _kernels.reset_launch_counts()
+    tiny = profile.main(["--what", "train", "--tiny", "--device", "cuda", "--iters", "1",
+                         "--out", "build/profile/smoke_profile_train_tiny"])
+    tiny_launches = _kernels.launch_counts()
+    tiny_finite = all(bool(torch.isfinite(g).all()) for g in tiny["out"])
+    log(f"[profile-train] --tiny on the card: {tiny['seconds'][0]:.3f} s, gradients over "
+        f"{len(tiny['out'])} tensors {'finite' if tiny_finite else 'NOT FINITE'}, launches "
+        f"{tiny_launches}")
+    if not tiny_finite or any(tiny_launches[k] != 2 * n for k, n in want.items()):
+        raise AssertionError(f"profile train --tiny: finite {tiny_finite}, launched "
+                             f"{tiny_launches} in 2 runs, want {want} per run")
     return launches
 
 
@@ -1034,7 +1126,8 @@ def phase_profile_train(smi: str):
 # at B=8 in float32, the probe's bf16 tile)
 HEADLINE = {
     "sosfilt": lambda c: True,
-    "flash_fwd": lambda c: c["dtype"] == "bfloat16" and c["shape"] == [384, 1655, 128],
+    "flash_fwd": lambda c: (c["dtype"] == "bfloat16" and c["shape"] == [384, 1655, 128]
+                            and c.get("inputs") == "flat"),
     "flash_bwd": lambda c: (c["dtype"] == "bfloat16" and c["shape"] == [96, 1655, 128]
                             and c["dropout"] > 0),
     "flash_bwd_dq": lambda c: c["dtype"] == "float32" and c["shape"] == [192, 1655, 128],

@@ -23,7 +23,7 @@ calls, under ``utils.profiling.trace``, which writes ``<out>/trace.json``.  On
 the card the device time by kernel name follows (``cli.profile_slice.
 device_summary``).  The default device is the card; ``--device cpu`` runs the
 plain twins of the kernels.  ``--tiny`` has head dims 12 and 24, which the
-flash kernels refuse (they take multiples of 8), so it runs on the CPU only.
+flash kernels take on their CUDA-core variants.
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", required=True, help="directory of the Chrome trace")
     ap.add_argument("--what", choices=("encode", "generate", "train"), default="encode")
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--tiny", action="store_true", help="tiny config (CPU only)")
+    ap.add_argument("--tiny", action="store_true", help="the JAX script's tiny config")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args(argv)

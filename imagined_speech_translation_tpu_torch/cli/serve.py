@@ -1,10 +1,10 @@
 """The serving decode function: raw EEG windows -> text, on one CUDA device.
 
 Port of ``imagined_speech_translation_tpu.cli.serve`` (``build_decode_fn``
-and ``build_decode_fn_from_args``).  The decode function plugs into the JAX
-package's jax-free runtime (``runtime.batcher.BatchScheduler``,
-``runtime.server``) unchanged.  The websocket ``main``, the multi-device mesh
-and the float16 wire option are not ported yet.
+and ``build_decode_fn_from_args``).  The decode function plugs into the
+port's own ``runtime.batcher.BatchScheduler`` unchanged.  The port has no
+``runtime.server`` yet; the websocket ``main``, the multi-device mesh and the
+float16 wire option are not ported yet either.
 """
 
 from __future__ import annotations

@@ -82,6 +82,11 @@
 
 namespace {
 
+using sm90::fence_frags;
+using sm90::pack;
+using sm90::pack_bf16;
+using sm90::zero;
+
 constexpr float kNegInf = -1.0e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -332,11 +337,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // Four 8x8 b16 matrices; lane i addresses row i % 8 of matrix i / 8.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -478,11 +478,6 @@ __device__ __forceinline__ void store_ds(unsigned char* tile, const uint32_t (&d
   }
 }
 
-__device__ __forceinline__ void zero(float (&a)[32]) {
-#pragma unroll
-  for (int j = 0; j < 32; ++j) a[j] = 0.f;
-}
-
 // acc = A B over one warpgroup's 64 rows: A (64 x NCB*64) K-major tiles at
 // a (tile stride a_cb), B^T (64 x NCB*64) K-major tiles at b (stride kTile).
 template <int NCB>
@@ -544,17 +539,6 @@ struct WgTile {
   }
   __device__ __forceinline__ bool valid(int j) const { return q0 + col(j) < s_q; }
 };
-
-__device__ __forceinline__ void pack(uint32_t (&out)[4][4], const float (&v)[32]) {
-#pragma unroll
-  for (int m = 0; m < 16; ++m) out[m / 4][m % 4] = pack_bf16(v[2 * m], v[2 * m + 1]);
-}
-
-// Holds register A operands live until the wgmma that reads them has completed.
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) sm90::fence_regs(a[ks]);
-}
 
 template <int NCB, bool kSplit, bool kDQ>
 __global__ void __launch_bounds__(kWgThreads, 1)

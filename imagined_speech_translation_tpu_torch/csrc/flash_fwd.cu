@@ -7,44 +7,72 @@
 // self-attention (head dim 128 at heads (6,6,6); 96/192 at (8,4,4)) and the
 // shared cross-scale attention (head dim 256), all over 1655 tokens.
 //
-// What bounds it on an H100: arithmetic.  At batch 16 the serving path runs
-// about 2.7 TFLOP of attention per batch against ~0.2 GB of q/k/v/o, far above
-// the card's ratio of operations to bytes, so the products must run on the
-// tensor cores; the (S, S) score matrix never leaves the chip.
+// What bounds it on an H100: arithmetic, 4 * bh * s_q * s_kv * d FLOPs
+// against ~4 (bh, S, d) tensors moved: 0.545 ms at both serving shapes,
+// (384, 1655, 128) and (192, 1655, 256), and 0.136 ms at both training
+// shapes, (96, 1655, 128) and (48, 1655, 256), at the bf16 tensor-core peak
+// of 989 TFLOP/s.  The (S, S) score matrix never leaves the chip.
 //
-// Design, two variants chosen by what the call can observe:
+// Semantics, both variants: scores are scaled by scale * log2(e) in f32
+// after the product, keys >= s_kv score -1e30 and padded V rows are zero, as
+// in the TPU kernel; the online softmax runs in f32 with exp2f; the output is
+// written in the input dtype, rows >= s_q not at all, and the base-2
+// logsumexp (m + log2 l) as float32 (bh, s_q) for the backward.
 //
-// * bfloat16 with d % 16 == 0 and 16-byte aligned tensors (every serving
-//   shape): the tensor-core kernel below (mma.sync m16n8k16, bf16 in, f32
-//   accumulate; four warps of 16 query rows each).  wgmma/TMA tiles are
-//   later work.
+// Dropout (training): each probability is replaced by keep ? p / (1 - rate)
+// : 0 before it enters P V, while the row sum l (and so lse) keeps the
+// undropped p, as the TPU kernel does.  The keep bit of element (bh, row,
+// col) comes from dropout_mask.cuh, a hash of the seed and the element's
+// place in flash_attention's logical tiles, so the backward kernel
+// regenerates the same mask without storing it.  The seed is a kernel
+// argument drawn on the host.
+//
+// Two variants, chosen by what the call can observe:
+//
+// * bfloat16 with d % 16 == 0 and 16-byte aligned tensors (every serving and
+//   training shape): built for Hopper from the helpers of sm90.cuh, 384
+//   threads a block.  Against what held the mma.sync kernel it replaces:
+//   - wgmma, not mma.sync: S = Q K^T by wgmma with both operands in shared
+//     memory (K-major 64-row tiles in TMA's 128-byte swizzle), O += P V by
+//     wgmma with P as the register A operand, packed to bf16 in place from
+//     the S accumulator (the layouts coincide), and V read MN-major from the
+//     same TMA tiles; P never touches shared memory and no operand goes
+//     through ldmatrix.  Within a warpgroup S of key tile j runs beside
+//     P V of tile j - 1, so the softmax of one tile overlaps the other
+//     product;
+//   - loads overlap compute: a producer warp loads the block's Q tile once
+//     and keeps two rings in flight by TMA, K's and V's (4 stages at d <= 64,
+//     3 at 128 and 192, 2 at 256), each stage signalled by an mbarrier with its byte count
+//     and released by one arrival of each consumer warp, K's as soon as S is
+//     done; no consumer thread spends a register or an instruction on a copy;
+//   - bigger key tiles: 128 keys a stage at d <= 128 (S by m64n128k16) and 64
+//     at d > 128, where the mma.sync kernel took 32, doubling its tiles,
+//     rescales and barriers; setmaxnreg gives the two consumer warpgroups
+//     240 registers a thread (O is 128 floats at d = 256, S 64 at d = 128)
+//     and the producer 24;
+//   - 128 queries a block in two consumer warpgroups of 64 (the mma.sync
+//     kernel had 64 in four warps), so each K/V tile is fetched half as
+//     often, and while one warpgroup runs its softmax the other's products
+//     run (no explicit ping-pong between them);
+//   - the dropout mask: where the logical tiles are multiples of the 64-query
+//     x 128- (or 64-) key kernel tile, the hash input is computed once per
+//     tile (dropout_tile_base) and only the finaliser per element; other
+//     logical tiles keep two divisions per element.  Both give the same
+//     bits, and they are computed while the S product runs.
+//   Tails: TMA fills zeros past S and past d (whole boxes past s_kv
+//   included); O is written by guarded stores.  Shared memory: Q 32 KB and
+//   3 x 64 KB of K/V stages at d = 128, Q 64 KB and 2 x 64 KB at d = 256.
 // * float32, or any other d <= 256: a CUDA-core kernel that keeps float32
 //   products exact (tensor cores would round f32 inputs to TF32), bounded by
-//   the FMA rate and the shared-memory loads feeding it.
-//
-// Both: one block per (bh, 64-query tile), looping over key tiles of 64
-// (d <= 128) or 32 (d > 128) keys held in dynamic shared memory (up to ~137
-// KB at d = 256 in f32, above the 48 KB static limit, so the launch raises
-// the block's limit first).  The online softmax runs in f32 with exp2f on
-// scores scaled by scale*log2(e); keys >= s_kv score -1e30 and padded V rows
-// are zero, as in the TPU kernel.  The output is written in the input dtype,
-// and the base-2 logsumexp (m + log2 l) as float32 (bh, s_q) for the
-// backward.
-//
-// Dropout (training): after the online-softmax update each probability is
-// replaced by keep ? p / (1 - rate) : 0 before it enters P.V, while the row
-// sum l (and so lse) keeps the undropped p, as the TPU kernel does.  The keep
-// bit of element (bh, row, col) comes from dropout_mask.cuh, a hash of the
-// seed and the element's place in flash_attention's logical tiles, so the
-// backward kernel regenerates the same mask without storing it.  The seed is
-// a kernel argument drawn on the host.
-//
-// The CUDA-core variant: 256 threads; Q, K, V and the probability tile in
-// shared memory as float32 (bf16 widened on load); each thread owns a
-// 4 x (BK/16) tile of scores and a 4 x (DMAX/16) tile of the output in
-// registers, q is pre-scaled, and row max/sum are reduced across the 16
-// threads of a row with warp shuffles.  Q and K rows use a stride of d + 1
-// floats so that 16 threads reading 16 different rows hit 16 banks.
+//   the FMA rate and the shared-memory loads feeding it.  One block per (bh,
+//   64-query tile), looping over key tiles of 64 (d <= 128) or 32 (d > 128)
+//   keys held in dynamic shared memory (up to ~137 KB at d = 256 in f32);
+//   256 threads; Q, K, V and the probability tile in shared memory as
+//   float32 (bf16 widened on load); each thread owns a 4 x (BK/16) tile of
+//   scores and a 4 x (DMAX/16) tile of the output in registers, q is
+//   pre-scaled, and row max/sum are reduced across the 16 threads of a row
+//   with warp shuffles.  Q and K rows use a stride of d + 1 floats so that 16
+//   threads reading 16 different rows hit 16 banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,8 +80,15 @@
 #include <cstdint>
 
 #include "dropout_mask.cuh"
+#include "sm90.cuh"
+
 
 namespace {
+
+using sm90::fence_frags;
+using sm90::pack;
+using sm90::pack_bf16;
+using sm90::zero;
 
 constexpr int kBQ = 64;
 constexpr int kThreads = 256;  // 16 x 16
@@ -227,231 +262,349 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core version (d a multiple of 16, 16-byte aligned tensors)
+// bf16 Hopper version (d a multiple of 16, 16-byte aligned tensors)
 // ---------------------------------------------------------------------------
-//
-// Four warps per block, 16 query rows each, with mma.sync m16n8k16 (bf16 in,
-// f32 accumulate) for both products.  Q and the K/V tiles sit in shared
-// memory row-major, filled with 16-byte vector copies; fragments come from
-// ldmatrix (.trans for V, whose fragments run down the key axis).  Rows are
-// padded by 8 elements so the 8 rows of each 8x8 ldmatrix hit distinct
-// banks.  Scores leave the first product in f32, are scaled by
-// scale*log2(e) and masked there, and the probabilities of a warp's 16 rows
-// are repacked from the score accumulators straight into the A fragments of
-// the second product (the C and A fragment layouts coincide), rounded to
-// bf16 as the plain path rounds them.  Row sums stay per thread and are
-// reduced across the 4 lanes of a row once at the end.
 
-constexpr int kMmaThreads = 128;
+constexpr int kWgThreads = 384;     // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kWgBQ = 128;          // queries per block, 64 per consumer warpgroup
+constexpr int kTile = 64 * 64 * 2;  // bytes of one 64 x 64 bf16 tile
+constexpr int kConsumerRegs = 240;  // setmaxnreg: 2 x 128 x 240 + 128 x 24 = 65,536 - 1,024
+constexpr int kProducerRegs = 24;
+constexpr int kLaunchRegs = 168;    // what __launch_bounds__(384, 1) gives every thread
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The tile shape of one head dim: NCB 64-wide column blocks of the head dim,
+// BN keys a stage (128 where O and S fit the registers together, else 64),
+// and the layout of one block's shared memory, in bytes from a 1024-byte
+// aligned base: Q as [warpgroup][column block] tiles of 64 rows, then two
+// rings of as many stages, K's and V's, each stage NCB column blocks of BN
+// rows (BN / 64 tiles one after the other).
+template <int NCB>
+struct FwdTiles {
+  static constexpr int BN = NCB <= 2 ? 128 : 64;
+  static constexpr int q = 0;
+  static constexpr int q_bytes = 2 * NCB * kTile;
+  static constexpr int cb_bytes = BN * 128;  // one column block of a stage
+  static constexpr int stage_bytes = NCB * cb_bytes;
+  static constexpr int fit = (232448 - 1024 - 256 - q_bytes) / (2 * stage_bytes);
+  static constexpr int stages = fit < 4 ? fit : 4;
+  static constexpr int k = q_bytes;
+  static constexpr int v = k + stages * stage_bytes;
+  static constexpr int bars = v + stages * stage_bytes;
+  static constexpr int total = bars + (4 * stages + 1) * 8 + 1024;  // + alignment slack
+  static_assert(stages >= 2 && total <= 232448, "shared memory of one block");
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// The accumulator layout (sm90.cuh): element j of a thread sits at row
+// 16 warp + g + 8 row_half(j) and column col(j) of the warpgroup's tile.
+__device__ __forceinline__ int row_half(int j) { return (j / 2) % 2; }
+__device__ __forceinline__ int col(int j, int t) { return 8 * (j / 4) + 2 * t + j % 2; }
 
-// Four 8x8 b16 matrices; lane i addresses row i % 8 of matrix i / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-template <int BK>
-size_t mma_smem_bytes(int d) {
-  return sizeof(__nv_bfloat16) * static_cast<size_t>(kBQ + 2 * BK) * (d + 8);
-}
-
-template <int DMAX, int BK>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int s_q, int s_kv, int d, float qscale,
-                         DropoutMask drop) {
-  constexpr int NS = BK / 8;    // score n-tiles of 8 keys
-  constexpr int NO = DMAX / 8;  // output n-tiles of 8 dims
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldq = d + 8;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kBQ x ldq
-  __nv_bfloat16* ks = qs + kBQ * ldq;                              // BK x ldq
-  __nv_bfloat16* vs = ks + BK * ldq;                               // BK x ldq
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread in group
-  const int lr = lane % 8;  // ldmatrix: row within the lane's 8x8 matrix
-  const int lm = lane / 8;  // ldmatrix: which of the 4 matrices
-  const int wrow = (tid / 32) * 16;
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const size_t q_base = static_cast<size_t>(bh) * s_q * d;
-  const size_t kv_base = static_cast<size_t>(bh) * s_kv * d;
-  const int vecs = d / 8;  // 16-byte vectors per row
-
-  for (int idx = tid; idx < kBQ * vecs; idx += kMmaThreads) {
-    const int r = idx / vecs;
-    const int c = (idx - r * vecs) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < s_q)
-      val = *reinterpret_cast<const uint4*>(q + q_base + static_cast<size_t>(q0 + r) * d + c);
-    *reinterpret_cast<uint4*>(qs + r * ldq + c) = val;
+// The keep bits of this thread's BN / 2 score elements (bit j % 32 of word
+// j / 32: element j, query row0 + 16 warp + g + 8 row_half(j), key key0 +
+// col(j)).  Where the 64 x BN kernel tile lies inside one logical tile the
+// hash input is hoisted out of the loop; otherwise each element divides.
+template <int BN>
+__device__ __forceinline__ void keep_bits(uint32_t (&bits)[BN / 64], const DropoutMask& m,
+                                          int bh, int row0, int key0, int warp, int g, int t) {
+  const int r = 16 * warp + g;
+#pragma unroll
+  for (int w = 0; w < BN / 64; ++w) bits[w] = 0;
+  if (m.block_q % 64 == 0 && m.block_k % BN == 0) {
+    const uint32_t bk = static_cast<uint32_t>(m.block_k);
+    const uint32_t base =
+        dropout_tile_base(m, bh, row0, key0) + static_cast<uint32_t>(r) * bk + 2 * t;
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      const uint32_t off = 8 * row_half(j) * bk + 8 * (j / 4) + j % 2;
+      bits[j / 32] |= static_cast<uint32_t>(dropout_keep_at(m, base, off)) << (j % 32);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      bits[j / 32] |= static_cast<uint32_t>(
+                          dropout_keep(m, bh, row0 + r + 8 * row_half(j), key0 + col(j, t)))
+                      << (j % 32);
+    }
   }
+}
 
-  float acc[NO][4];
+// Starts S = Q K^T for one warpgroup (64 queries x BN keys): Q's K-major
+// tiles at qs, K's column blocks at ks.
+template <int NCB, int BN>
+__device__ __forceinline__ void start_qk(float (&s)[BN / 2], uint32_t qs, uint32_t ks) {
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  const int n_tiles = (s_kv + BK - 1) / BK;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();  // the previous tile is consumed; Q is written
-    for (int idx = tid; idx < BK * vecs; idx += kMmaThreads) {
-      const int r = idx / vecs;
-      const int c = (idx - r * vecs) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0);
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < s_kv) {
-        const size_t off = kv_base + static_cast<size_t>(k0 + r) * d + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * ldq + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * ldq + c) = vv;
-    }
-    __syncthreads();
-
-    float s[NS][4];
+  for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    for (int kk = 0; kk < d; kk += 16) {
-      // A: rows wrow + (0..7 | 8..15) x dims kk + (0..7 | 8..15)
-      uint32_t a[4];
-      ldmatrix_x4(a, qs + (wrow + lr + 8 * (lm % 2)) * ldq + kk + 8 * (lm / 2));
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        // B of key tiles n and n + 1: keys x dims kk + (0..7 | 8..15)
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + ((n + lm / 2) * 8 + lr) * ldq + kk + 8 * (lm % 2));
-        mma_bf16(s[n], a, b[0], b[1]);
-        mma_bf16(s[n + 1], a, b[2], b[3]);
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t a = sm90::desc_b128(qs + cb * kTile + 32 * kk);
+      const uint64_t b = sm90::desc_b128(ks + cb * BN * 128 + 32 * kk);
+      if constexpr (BN == 128) {
+        sm90::wgmma_ss_n128<0, 0>(s, a, b, 1);
+      } else {
+        sm90::wgmma_ss<0, 0>(s, a, b, 1);
       }
     }
+}
 
-    // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float mx[2] = {kNegInf, kNegInf};
+// Starts O[cb] += P V[cb]: P (64 x BN) in registers, V's MN-major column
+// blocks at vs.
+template <int NCB, int BN>
+__device__ __forceinline__ void start_pv(float (&acc)[NCB][32], const uint32_t (&p)[BN / 16][4],
+                                         uint32_t vs) {
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+  for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float val = col < s_kv ? s[n][e] * qscale : kNegInf;
-        s[n][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[n][e] - m[e >> 1]);
-        l[e >> 1] += p;  // the normalizer sums the undropped probabilities
-        if (drop.on)
-          p = dropout_keep(drop, bh, q0 + wrow + g + 8 * (e >> 1), k0 + n * 8 + 2 * t + (e & 1))
-                  ? p * drop.inv_keep
-                  : 0.f;
-        s[n][e] = p;
-      }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+    for (int ks = 0; ks < BN / 16; ++ks)
+      sm90::wgmma_rs<1>(acc[cb], p[ks], sm90::desc_b128(vs + cb * BN * 128 + 2048 * ks), 1);
+}
 
+struct RowState {
+  float m[2], l[2];
+};
+
+// The online-softmax step of one key tile on the scores in s (raw Q K^T):
+// scales them by qscale, masks keys >= s_kv, updates the row max m and the
+// row sum l (undropped probabilities, this thread's columns only), and
+// leaves in s the probabilities to multiply V with (dropped and scaled when
+// dropout is on).  Sets the factors alpha that rescale the rows' earlier
+// output.
+template <int BN>
+__device__ __forceinline__ void softmax_step(float (&s)[BN / 2], RowState& rs,
+                                             float (&alpha)[2], int key0, int s_kv, int t,
+                                             float qscale, const DropoutMask& drop,
+                                             const uint32_t (&keep)[BN / 64]) {
+  const bool tail = key0 + BN > s_kv;
+  float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                             pack_bf16(s[2 * j][2], s[2 * j][3]),
-                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+  for (int j = 0; j < BN / 2; ++j) {
+    float x = s[j] * qscale;
+    if (tail && key0 + col(j, t) >= s_kv) x = kNegInf;
+    s[j] = x;
+    mx[row_half(j)] = fmaxf(mx[row_half(j)], x);
+  }
 #pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        if (n * 8 < d) {
-          // B of dim tiles n and n + 1, transposed: keys j*16 + (0..7 | 8..15)
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vs + (j * 16 + lr + 8 * (lm % 2)) * ldq + (n + lm / 2) * 8);
-          mma_bf16(acc[n], a, b[0], b[1]);
-          mma_bf16(acc[n + 1], a, b[2], b[3]);
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(rs.m[h], mx[h]);
+    alpha[h] = exp2f(rs.m[h] - m_new);
+    rs.m[h] = m_new;
+    rs.l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    const int h = row_half(j);
+    float p = exp2f(s[j] - rs.m[h]);
+    rs.l[h] += p;  // the normalizer sums the undropped probabilities
+    if (drop.on) p = (keep[j / 32] >> (j % 32)) & 1u ? p * drop.inv_keep : 0.f;
+    s[j] = p;
+  }
+}
+
+template <int NCB>
+__device__ __forceinline__ void rescale(float (&acc)[NCB][32], const float (&alpha)[2]) {
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[cb][j] *= alpha[row_half(j)];
+}
+
+template <int NCB>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int n_qt,
+                           int s_q, int s_kv, int d, float qscale, DropoutMask drop) {
+  using L = FwdTiles<NCB>;
+  constexpr int BN = L::BN;
+  constexpr int kStages = L::stages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  // [0]: K's ring, [1]: V's
+  uint64_t* full[2] = {reinterpret_cast<uint64_t*>(smem + L::bars),
+                       reinterpret_cast<uint64_t*>(smem + L::bars) + kStages};
+  uint64_t* empty[2] = {full[1] + kStages, full[1] + 2 * kStages};
+  uint64_t* q_full = empty[1] + kStages;
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x - bh * n_qt) * kWgBQ;
+  const int n_kt = (s_kv + BN - 1) / BN;
+  const bool two = q0 + 64 < s_q;  // both warpgroups have rows < s_q
+
+  if (threadIdx.x == 0) {
+    for (int kv = 0; kv < 2; ++kv)
+      for (int s = 0; s < kStages; ++s) {
+        sm90::mbar_init(&full[kv][s], 1);   // the producer's byte count
+        sm90::mbar_init(&empty[kv][s], 8);  // one arrival per consumer warp
+      }
+    sm90::mbar_init(q_full, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread loads Q once and keeps the K and V rings full
+    sm90::reg_dealloc<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      sm90::mbar_arrive_expect_tx(q_full, (two ? 2 : 1) * NCB * kTile);
+      for (int w = 0; w < (two ? 2 : 1); ++w)
+        for (int cb = 0; cb < NCB; ++cb)
+          sm90::tma_load_3d(smem + L::q + (w * NCB + cb) * kTile, &tm_q, q_full, 64 * cb,
+                            q0 + 64 * w, bh);
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % kStages;
+        for (int kv = 0; kv < 2; ++kv) {
+          sm90::mbar_wait(&empty[kv][s], ((it / kStages) & 1) ^ 1);
+          unsigned char* st = smem + (kv ? L::v : L::k) + s * L::stage_bytes;
+          sm90::mbar_arrive_expect_tx(&full[kv][s], L::stage_bytes);
+          for (int cb = 0; cb < NCB; ++cb)
+            for (int r = 0; r < BN / 64; ++r)
+              sm90::tma_load_3d(st + cb * L::cb_bytes + r * kTile, kv ? &tm_v : &tm_k,
+                                &full[kv][s], 64 * cb, BN * it + 64 * r, bh);
         }
       }
     }
+    return;
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    const float lc = fmaxf(li, 1e-30f);
-    const float inv = 1.f / lc;
-    const int row = q0 + wrow + g + 8 * i;
-    if (row >= s_q) continue;
-    __nv_bfloat16* orow = o + q_base + static_cast<size_t>(row) * d;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      if (n * 8 < d) {
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-            pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  // ---- consumers: warpgroup wg owns queries row0 .. row0 + 63
+  sm90::reg_alloc<kConsumerRegs>();
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int row0 = q0 + 64 * wg;
+  const uint32_t qs = sm90::smem_u32(smem + L::q + wg * NCB * kTile);
+  const uint32_t k_ring = sm90::smem_u32(smem + L::k);
+  const uint32_t v_ring = sm90::smem_u32(smem + L::v);
+  auto k_tiles = [&](int it) { return k_ring + (it % kStages) * L::stage_bytes; };
+  auto v_tiles = [&](int it) { return v_ring + (it % kStages) * L::stage_bytes; };
+  auto wait_tile = [&](int kv, int it) {
+    sm90::mbar_wait(&full[kv][it % kStages], (it / kStages) & 1);
+  };
+  auto release_tile = [&](int kv, int it) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[kv][it % kStages]);
+  };
+  if (row0 >= s_q) {
+    // no query of this warpgroup exists: only pass the stages on
+    for (int it = 0; it < n_kt; ++it)
+      for (int kv = 0; kv < 2; ++kv) {
+        wait_tile(kv, it);
+        release_tile(kv, it);
       }
-    }
-    if (t == 0) lse[static_cast<size_t>(bh) * s_q + row] = m[i] + log2f(lc);
+    return;
+  }
+  sm90::mbar_wait(q_full, 0);
+
+  float acc[NCB][32];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) zero(acc[cb]);
+  RowState rs{{kNegInf, kNegInf}, {0.f, 0.f}};
+  float alpha[2];
+  float sa[BN / 2];
+  uint32_t keep[BN / 64];
+#pragma unroll
+  for (int w = 0; w < BN / 64; ++w) keep[w] = ~0u;
+  uint32_t pf[BN / 16][4];
+
+  // S of tile it runs beside P V of tile it - 1: the softmax of one tile
+  // overlaps the other product of this warpgroup
+  wait_tile(0, 0);
+  zero(sa);
+  sm90::fence_regs(sa);
+  sm90::wgmma_fence();
+  start_qk<NCB, BN>(sa, qs, k_tiles(0));
+  sm90::wgmma_commit();
+  if (drop.on) keep_bits<BN>(keep, drop, bh, row0, 0, warp, g, t);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sa);
+  release_tile(0, 0);
+  softmax_step<BN>(sa, rs, alpha, 0, s_kv, t, qscale, drop, keep);
+  pack(pf, sa);
+  for (int it = 1; it < n_kt; ++it) {
+    wait_tile(0, it);
+    wait_tile(1, it - 1);
+    zero(sa);
+    sm90::fence_regs(sa);
+    sm90::wgmma_fence();
+    start_qk<NCB, BN>(sa, qs, k_tiles(it));
+    sm90::wgmma_commit();
+    start_pv<NCB, BN>(acc, pf, v_tiles(it - 1));
+    sm90::wgmma_commit();
+    if (drop.on) keep_bits<BN>(keep, drop, bh, row0, BN * it, warp, g, t);
+    sm90::wgmma_wait<1>();  // S of tile it
+    sm90::fence_regs(sa);
+    release_tile(0, it);
+    softmax_step<BN>(sa, rs, alpha, BN * it, s_kv, t, qscale, drop, keep);
+    sm90::wgmma_wait<0>();  // P V of tile it - 1
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) sm90::fence_regs(acc[cb]);
+    fence_frags(pf);
+    release_tile(1, it - 1);
+    rescale<NCB>(acc, alpha);
+    pack(pf, sa);
+  }
+  wait_tile(1, n_kt - 1);
+  sm90::wgmma_fence();
+  start_pv<NCB, BN>(acc, pf, v_tiles(n_kt - 1));
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) sm90::fence_regs(acc[cb]);
+  fence_frags(pf);
+  release_tile(1, n_kt - 1);
+
+  // O = acc / l in bf16 and lse = m + log2 l, rows < s_q only
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = rs.l[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float lc = fmaxf(l, 1e-30f);
+    const float inv = 1.f / lc;
+    const int row = row0 + 16 * warp + g + 8 * h;
+    if (row >= s_q) continue;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * s_q + row) * d;
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = 64 * cb + 8 * i + 2 * t;
+        if (c < d) {
+          *reinterpret_cast<uint32_t*>(orow + c) =
+              pack_bf16(acc[cb][4 * i + 2 * h] * inv, acc[cb][4 * i + 2 * h + 1] * inv);
+        }
+      }
+    if (t == 0) lse[static_cast<size_t>(bh) * s_q + row] = rs.m[h] + log2f(lc);
   }
 }
 
-template <int DMAX, int BK>
-int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-               int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<BK>(d);
-  auto kernel = flash_fwd_mma_kernel<DMAX, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int NCB>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                 int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
+                 cudaStream_t stream) {
+  using L = FwdTiles<NCB>;
+  auto kernel = flash_fwd_wgmma_kernel<NCB>;
+  const long long n_qt = (s_q + kWgBQ - 1) / kWgBQ;
+  if (n_qt * bh > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // setmaxnreg moves registers between the warpgroups of a fixed pool: it
+  // needs the launch to hold kLaunchRegs a thread, or the consumers would wait forever
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (s_q + kBQ - 1) / kBQ);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, s_q, s_kv,
-      d, qscale, drop);
+  if (attr.numRegs != kLaunchRegs) return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tm_q, tm_k, tm_v;
+  int map_err = sm90::make_tile_map(&tm_q, q, bh, s_q, d);
+  if (!map_err) map_err = sm90::make_tile_map(&tm_k, k, bh, s_kv, d);
+  if (!map_err) map_err = sm90::make_tile_map(&tm_v, v, bh, s_kv, d);
+  if (map_err) return map_err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(n_qt * bh), kWgThreads, L::total, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(n_qt), s_q,
+      s_kv, d, qscale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,9 +624,10 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* l
                   cudaStream_t st) {
   if (d % 16 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
-  if (d <= 64) return launch_mma<64, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
-  if (d <= 128) return launch_mma<128, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
-  return launch_mma<256, 32>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (d <= 64) return launch_wgmma<1>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (d <= 128) return launch_wgmma<2>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (d <= 192) return launch_wgmma<3>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  return launch_wgmma<4>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
 }
 
 }  // namespace

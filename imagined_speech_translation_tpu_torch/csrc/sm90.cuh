@@ -3,7 +3,7 @@
 // them, named barriers, register reallocation between warpgroups
 // (setmaxnreg), and the warpgroup matrix multiply wgmma.mma_async at
 // m64n64k16 (bf16 in, f32 accumulate) with both operands in shared memory or
-// A in registers.
+// A in registers, and at m64n128k16 with both in shared memory.
 //
 // Shared-memory tiles.  Every bf16 operand tile is 64 values (128 bytes)
 // wide and a multiple of 8 rows tall, stored with the 128-byte swizzle that
@@ -15,12 +15,15 @@
 //   * MN-major (transpose flag 1): the depth runs down the rows; a k16 step
 //     is +16 rows = +2048 bytes.
 // Both use one descriptor form (desc_b128): 8-row groups 1024 bytes apart.
-// With M = N = 64 no operand spans two tiles across M or N, so the second
-// offset field is never used; it is set to the same 1024 bytes.
+// With M = N = 64 no operand spans two tiles across M or N; a K-major B of
+// N = 128 rows is two 64-row tiles stored one after the other, 16 groups
+// 1024 bytes apart (the stride field).  The leading-offset field is unused
+// in these layouts; it is set to the same 1024 bytes.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
@@ -213,6 +216,34 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) a[j] = 0.f;
+}
+
+// A thread's share of an accumulator (N floats: the 64 x 2N tile of an
+// m64n(2N) product, in the layout below) packed to bf16 as wgmma's register
+// A operand: k16 step s takes columns 16 s .. 16 s + 15,
+// out[s][m] = bf16x2(v[8 s + 2 m], v[8 s + 2 m + 1]).
+template <int N>
+__device__ __forceinline__ void pack(uint32_t (&out)[N / 8][4], const float (&v)[N]) {
+#pragma unroll
+  for (int m = 0; m < N / 2; ++m) out[m / 4][m % 4] = pack_bf16(v[2 * m], v[2 * m + 1]);
+}
+
+// Holds register A operands live until the wgmma that reads them has completed.
+template <int KS>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) fence_regs(a[ks]);
+}
+
 // d = A B + (scale_d ? d : 0), A and B in shared memory; TA / TB: 0 K-major,
 // 1 MN-major.
 template <int TA, int TB>
@@ -229,6 +260,31 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d = A B + (scale_d ? d : 0) at m64n128k16 (64 floats a thread, the
+// accumulator layout above with i = 0 .. 15), A and B in shared memory; TA /
+// TB: 0 K-major, 1 MN-major.  A B operand of 128 rows spans two 64-row
+// tiles stored one after the other.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

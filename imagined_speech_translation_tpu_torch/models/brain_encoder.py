@@ -5,13 +5,19 @@ region encoders run as one batched :class:`RegionConvAttentionEncoder`, then
 multi-scale convs over the region axis, region embeddings, fusion layers,
 gated cross-region attention, region weighting and the final enhancer.  In
 train mode every dropout of the JAX module draws from the ``generator``
-passed to ``forward``.
+passed to ``forward``.  With ``cfg.remat`` the region encoders' activations
+are recomputed in the backward instead of kept, as the JAX module's
+``nn.remat`` does (:func:`rematerialised`).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..config import BrainEncoderConfig
 from ..ops import dropout
@@ -51,6 +57,48 @@ class _Enhancer(nn.Module):
         return self.ln(self.fc2(dropout(gelu(self.fc1(x)), self.dropout, generator)))
 
 
+@contextlib.contextmanager
+def _buffers_kept(module: nn.Module):
+    """Restores ``module``'s buffers on exit (BatchNorm's running statistics)."""
+    saved = [(b, b.clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in saved:
+                b.copy_(s)
+
+
+def rematerialised(module: nn.Module, x, generator=None):
+    """``module(x, generator)`` under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward instead of kept.
+
+    The recompute runs with the parameter tensors of the first run (those
+    ``functional_call`` put in place, such as a bfloat16 copy), draws its
+    dropout seeds from a generator set to the state the first run started
+    from, so it replays the same masks, and leaves the running statistics as
+    the first run left them.  Afterwards ``generator`` stands where it would
+    without the checkpoint: gradients, masks and generator position are
+    those of ``module(x, generator)``."""
+    names, tensors = zip(*module.named_parameters())
+    state = None if generator is None else generator.get_state()
+    runs = []
+
+    def run(x, *params):
+        gen = None
+        if state is not None:
+            gen = torch.Generator(generator.device)
+            gen.set_state(state)
+            runs.append(gen)
+        return functional_call(module, dict(zip(names, params)), (x, gen))
+
+    out = checkpoint(run, x, *tensors, use_reentrant=False,
+                     context_fn=lambda: (contextlib.nullcontext(), _buffers_kept(module)))
+    if generator is not None:
+        generator.set_state(runs[0].get_state())
+    return out
+
+
 class BrainRegionEncoder(nn.Module):
     """Stacked-region EEG ``(B, R, C, T)`` -> fused ``(B, hidden_dim)`` feature."""
 
@@ -88,7 +136,11 @@ class BrainRegionEncoder(nn.Module):
             mask = torch.as_tensor(channel_mask, device=eeg.device)
             eeg = torch.where(mask[None, :, :, None], eeg, 0.0)
 
-        feats = self.region_encoders(eeg, generator).transpose(0, 1)  # (B, R, h)
+        if cfg.remat and torch.is_grad_enabled():
+            feats = rematerialised(self.region_encoders, eeg, generator)
+        else:
+            feats = self.region_encoders(eeg, generator)
+        feats = feats.transpose(0, 1)  # (B, R, h)
 
         # multi-scale convs over the region axis: (B, h, R) channel-first
         fr = feats.transpose(1, 2)

@@ -66,11 +66,8 @@ def _check(q, k, v) -> None:
         k.shape[-1] != q.shape[-1]
     ):
         raise ValueError(f"flash_attention: bad shapes q {q.shape} k {k.shape} v {v.shape}")
-    if not (0 < q.shape[-1] <= 256 and q.shape[-1] % 8 == 0):
-        raise ValueError(
-            f"flash_attention kernel takes a head dim <= 256 that is a multiple of 8, "
-            f"got {q.shape[-1]}"
-        )
+    if not 0 < q.shape[-1] <= 256:
+        raise ValueError(f"flash_attention kernel takes a head dim <= 256, got {q.shape[-1]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q/k/v")
 

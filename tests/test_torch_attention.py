@@ -2,12 +2,14 @@
 Pallas ``_fwd_kernel`` in interpret mode, the dispatching wrapper against
 ``ops.dot_product_attention``, and the dispatch rule."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from imagined_speech_translation_tpu.ops import dot_product_attention as jax_attention
+from imagined_speech_translation_tpu.ops.attention import _flash_available as jax_flash_available
 from imagined_speech_translation_tpu.ops.pallas_attention import flash_attention as jax_flash
 from imagined_speech_translation_tpu_torch import _kernels
 from imagined_speech_translation_tpu_torch.frontend import SignalFrontend
@@ -64,6 +66,9 @@ def test_masked_attention_matches_jax():
         (1655, 1655, 128, False, True),   # region self-attention
         (1655, 1655, 256, False, True),   # shared cross-scale attention
         (128, 128, 96, False, True),
+        (128, 128, 12, False, True),      # head dims of cli/profile.py --tiny
+        (1655, 1655, 24, False, True),
+        (1655, 1655, 100, False, True),
         (127, 1655, 128, False, False),   # short queries stay dense
         (1655, 100, 128, False, False),
         (1655, 1655, 288, False, False),  # head dim above 256
@@ -71,11 +76,14 @@ def test_masked_attention_matches_jax():
         (1, 16, 64, True, False),         # decode step with a KV cache
     ],
 )
-def test_dispatch_rule(s_q, s_kv, d, masked, flash):
+def test_dispatch_rule(monkeypatch, s_q, s_kv, d, masked, flash):
     q = torch.empty((1, 1, s_q, d), device="meta")
     k = torch.empty((1, 1, s_kv, d), device="meta")
     mask = torch.ones((1, 1, s_q, s_kv), dtype=torch.bool, device="meta") if masked else None
     assert flash_route(q, k, mask) is flash
+    # the JAX package's rule on the backend that has its kernels
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    assert jax_flash_available(q, k, mask) is flash
 
 
 def test_flash_on_cpu_is_the_reference():

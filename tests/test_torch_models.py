@@ -8,6 +8,7 @@ region encoders' token sequences (T + 4 = 128) take the flash route.
 Tolerance: atol 1e-4 on float32 outputs of magnitude ~1-4 (a few hundred
 float32 ops deep, summed in different orders)."""
 
+import copy
 import dataclasses
 import functools
 
@@ -108,6 +109,64 @@ def test_brain_encoder_matches_jax(setup):
     with torch.no_grad():
         got = setup["tm"].brain_encoder(_t(setup["eeg"]), _t(setup["mask"]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def _remat(encoder, on: bool):
+    enc = copy.deepcopy(encoder)
+    enc.cfg = dataclasses.replace(enc.cfg, remat=on)
+    return enc
+
+
+@pytest.mark.parametrize("dropout", [True, False], ids=["dropout", "no-dropout"])
+def test_remat_gradients_match_without_remat(setup, dropout):
+    # train mode: dropout (attention 0.1, the encoders' own tiers) from the
+    # generator, or none; BatchNorm on batch statistics either way
+    eeg = _t(setup["eeg"])
+    runs = {}
+    for on in (False, True):
+        enc = _remat(setup["tm"].brain_encoder, on).train()
+        calls = []
+        enc.region_encoders.register_forward_pre_hook(lambda *_: calls.append(1))
+        gen = torch.Generator().manual_seed(11) if dropout else None
+        out = enc(eeg, _t(setup["mask"]), gen)
+        params = [p for n, p in enc.named_parameters() if n.startswith("region_encoders.")]
+        grads = torch.autograd.grad(out.square().sum(), params)
+        runs[on] = dict(out=out.detach(), grads=grads, calls=len(calls),
+                        gen=None if gen is None else gen.get_state(),
+                        stats=[b.clone() for b in enc.buffers()])
+    off, on = runs[False], runs[True]
+    assert (off["calls"], on["calls"]) == (1, 2)  # remat recomputes in the backward
+    torch.testing.assert_close(on["out"], off["out"], rtol=1e-6, atol=0)
+    for a, b in zip(on["grads"], off["grads"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    if dropout:  # the generator stands where it would without remat
+        assert torch.equal(on["gen"], off["gen"])
+    # the recompute leaves the running statistics as the first run left them
+    assert len(off["stats"]) > 0
+    for a, b in zip(on["stats"], off["stats"]):
+        assert torch.equal(a, b)
+
+
+def test_remat_brain_encoder_matches_jax(setup):
+    # eval mode; the port's remat runs where autograd records, so the input
+    # takes gradients, and they are held to jax.grad through nn.remat too
+    cfg = dataclasses.replace(setup["cfg"].model.brain_encoder, remat=True)
+    v = setup["variables"]
+    sub = {c: v[c]["brain_encoder"] for c in ("params", "batch_stats")}
+    jenc = JaxBrainEncoder(cfg)
+
+    def loss(e):
+        out = jenc.apply(sub, e, setup["mask"])
+        return (out * out).sum(), out
+
+    (_, want), want_grad = jax.jit(jax.value_and_grad(loss, has_aux=True))(setup["eeg"])
+    enc = _remat(setup["tm"].brain_encoder, True).eval()
+    eeg = _t(setup["eeg"]).requires_grad_()
+    got = enc(eeg, _t(setup["mask"]))
+    (got_grad,) = torch.autograd.grad(got.square().sum(), eeg)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    scale = np.abs(np.asarray(want_grad)).max()
+    np.testing.assert_allclose(got_grad.numpy(), np.asarray(want_grad), atol=1e-5 * scale)
 
 
 def test_encode_and_forward_match_jax(setup):

@@ -105,6 +105,12 @@ def _qkvg(shape, s_kv):
     pytest.param(0.1, (1, 2, 193, 16), 193, id="0.1-s193-d16"),
     pytest.param(0.0, (1, 2, 193, 16), 193, id="0.0-s193-d16"),
     pytest.param(0.1, (1, 1, 77, 32), 193, id="0.1-q77-kv193-d32"),
+    # head dims that are not multiples of 8 (cli/profile.py --tiny has 12
+    # and 24), which the kernels take on their CUDA-core variants
+    pytest.param(0.1, (1, 2, 130, 12), 130, id="0.1-s130-d12"),
+    pytest.param(0.0, (1, 2, 130, 12), 130, id="0.0-s130-d12"),
+    pytest.param(0.1, (1, 2, 130, 24), 200, id="0.1-q130-kv200-d24"),
+    pytest.param(0.0, (1, 2, 130, 24), 200, id="0.0-q130-kv200-d24"),
 ])
 def test_flash_with_dropout_matches_interpret_kernels(rate, shape, s_kv):
     q, k, v, g = _qkvg(shape, s_kv)
