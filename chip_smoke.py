@@ -27,13 +27,15 @@ Phases, each failing loudly (non-zero exit, no final line):
    and with logical dropout tiles that are not multiples of their own, on
    ragged lengths (the backward also at head dims 12, 24 and 100); two
    launches of the bf16 split dK/dV kernel bit-identical;
-4b. split kernels: the rate-0 backward's dQ and dK/dV kernels at the
-   eval-mode gradient's shapes and at head dims 8-192 (12, 24 and 100
-   among them), in float32 and
-   bfloat16, against autograd through the plain version in float32 on the
-   same input values (max |err| / max |ref| within 1e-4 f32 / 2e-2 bf16, a
-   bound the gradients without the delta term must exceed); two launches
-   bit-identical; the fused kernel at rate 0 within the same bound; times;
+4b. split kernels: the f32 3xTF32 kernels' ptxas report (no spills); the
+   rate-0 backward's dQ and dK/dV kernels at the eval-mode gradient's
+   shapes and at head dims 8-192 (12, 24 and 100 among them), in float32
+   and bfloat16, against autograd through the plain version in float32 on
+   the same input values (max |err| / max |ref| within 1e-4 f32 / 2e-2
+   bf16, a bound the gradients without the delta term must exceed, and in
+   float32 also the plain gradients with one-pass TF32 products); two
+   launches bit-identical; the fused kernel at rate 0 within the same
+   bound; times;
 5. slice: the full-width model (random weights from a seed, BatchNorm folded,
    bf16) decodes 16 raw windows through ``cli.serve.build_decode_fn``; the
    serving kernels' launch counters must rise;
@@ -94,11 +96,14 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-# Published peaks of one H100 SXM (dense): bf16 tensor cores, float32 on the
-# CUDA cores, HBM bandwidth.  A kernel's bound is the larger of its FLOPs over
+# Published peaks of one H100 SXM (dense): bf16 tensor cores, HBM bandwidth,
+# and for float32 the rate of f32-accurate products on the tensor cores by
+# 3xTF32 (three TF32 products of 495 TFLOP/s each; the split backward's f32
+# kernels run so), which is above the CUDA cores' 67 TFLOP/s and so the least
+# time the card could take.  A kernel's bound is the larger of its FLOPs over
 # the peak for its type and its bytes (each input read once, each output
 # written once) over the bandwidth.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -615,7 +620,11 @@ def phase_split_kernels():
     input values, max |err| / max |ref| within 1e-4 f32 / 2e-2 bf16.  Inputs:
     q, k ~ N(0, 0.3^2), v ~ N(0.5, 0.3^2), dO ~ N(0, 1); with V's non-zero
     mean the delta term carries most of dS, so the plain gradients computed
-    without it must lie farther than the bound.  Two launches must give the
+    without it must lie farther than the bound.  At the full shapes in
+    float32 the plain gradients with every product in one TF32 pass must
+    lie farther too: the f32 kernels run 3xTF32, and a kernel that dropped
+    its small terms would land there.  Before the checks, the f32 kernels'
+    ptxas report must show no spills.  Two launches must give the
     same bits, and the fused kernel at rate 0 must agree within the bound.
     Times: dQ, dK/dV and both (kernels alone), the fused kernel at rate 0,
     the plain autograd and ``F.scaled_dot_product_attention``'s backward at
@@ -641,6 +650,17 @@ def phase_split_kernels():
     dev = torch.device("cuda")
     rng = np.random.default_rng(20)
     checks = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+
+    # the f32 3xTF32 kernels as ptxas built them: no spills
+    for fragment in ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"):
+        report = _kernels.ptxas_info(fragment)
+        if not report:
+            raise AssertionError(f"no ptxas report of {fragment} in the build log")
+        for entry, lines in sorted(report.items()):
+            log(f"[split-kernels] ptxas {entry}: " + "; ".join(lines))
+            spills = [int(n) for line in lines for n in re.findall(r"(\d+) bytes spill", line)]
+            if not spills or any(spills):
+                raise AssertionError(f"{entry} spills or has no spill line: {lines}")
     bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
     def inputs(b, h, s_q, s_kv, d, dtype):
@@ -650,13 +670,27 @@ def phase_split_kernels():
         dout = rng.normal(size=(b, h, s_q, d))
         return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in (q, k, v, dout)]
 
+    def autograd_grads(q, k, v, dout):
+        """Autograd through the plain version in float32."""
+        qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+        return torch.autograd.grad(flash_attention_reference(qf, kf, vf)[0], (qf, kf, vf),
+                                   dout.float())
+
+    def tf32_grads(q, k, v, dout):
+        """The same with every product in one TF32 pass (what the f32 kernels
+        would give if they dropped 3xTF32's small terms)."""
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return autograd_grads(q, k, v, dout)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
     def plain_grads(q, k, v, dout):
         """Autograd through the plain version in float32, and the dQ and dK
         it gives without the delta term (dS = P * dP)."""
-        qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+        qf, kf, vf = (t.float() for t in (q, k, v))
         scale = q.shape[-1] ** -0.5
-        want = torch.autograd.grad(flash_attention_reference(qf, kf, vf)[0], (qf, kf, vf),
-                                   dout.float())
+        want = autograd_grads(q, k, v, dout)
         with torch.no_grad():
             p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
             ds = p * torch.matmul(dout.float(), vf.transpose(-1, -2))
@@ -688,7 +722,11 @@ def phase_split_kernels():
             errs = [(a.float() - w).abs().max().item() for a, w in zip(got, want)]
             rels = [rel(a, w) for a, w in zip(got, want)]
             apart = [rel(n, w) for n, w in zip(no_delta, want[:2])]
-            del got, want, no_delta
+            del no_delta
+            # f32 only: the plain gradients in 1xTF32 must lie beyond the bound
+            tf32_apart = ([rel(a, w) for a, w in zip(tf32_grads(q, k, v, dout), want)]
+                          if dtype == torch.float32 else None)
+            del got, want
 
             ms_dq = cuda_ms(lambda: backward_dq(*args), iters=5)
             ms_dkv = cuda_ms(lambda: backward_dkv(*args), iters=5)
@@ -711,7 +749,8 @@ def phase_split_kernels():
             b_dkv = least_time(4 * flops, 6 * io + rows, name)
             b_split = least_time(7 * flops, 7 * io + rows, name)
             common = dict(shape=[bh, S, d], dtype=name, bound=bound, deterministic=same,
-                          rel_err_vs_fused_rate0=vs_fused, split_ms=ms_split,
+                          rel_err_vs_fused_rate0=vs_fused, rel_err_tf32_twin=tf32_apart,
+                          split_ms=ms_split,
                           fused_rate0_ms=ms_fused, split_bound_ms=b_split[0],
                           plain_ms=plain, library_ms=lib)
             checks["flash_bwd_dq"].append(dict(
@@ -723,7 +762,10 @@ def phase_split_kernels():
                 bound_by=b_dkv[1]))
             log(f"[split-kernels] ({bh}, {S}, {d}) {name}: max|err|/max|ref| dq {rels[0]:.2e} "
                 f"dk {rels[1]:.2e} dv {rels[2]:.2e} (bound {bound:.0e}); without delta dq "
-                f"{apart[0]:.2e} dk {apart[1]:.2e} (must exceed it); two launches "
+                f"{apart[0]:.2e} dk {apart[1]:.2e} (must exceed it); "
+                + ("" if tf32_apart is None else "1xTF32 twin dq dk dv "
+                   + " ".join(f"{x:.2e}" for x in tf32_apart) + " (must exceed it); ")
+                + "two launches "
                 f"{'bit-identical' if same else 'DIFFER'}; against the fused kernel at rate 0 "
                 + " ".join(f"{x:.2e}" for x in vs_fused)
                 + f"; dq {ms_dq:.3f} ms + dkv {ms_dkv:.3f} ms = split {ms_split:.3f} ms "
@@ -734,6 +776,9 @@ def phase_split_kernels():
             if not min(apart) > bound:
                 raise AssertionError(f"split backward check cannot tell a missing delta term: "
                                      f"{apart} <= {bound}")
+            if tf32_apart is not None and not min(tf32_apart) > bound:
+                raise AssertionError(f"split backward check cannot tell 1xTF32 products: "
+                                     f"{tf32_apart} <= {bound}")
             if not same:
                 raise AssertionError("split backward: two launches gave different bits")
             if not max(vs_fused) <= bound:

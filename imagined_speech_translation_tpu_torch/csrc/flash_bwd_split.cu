@@ -18,17 +18,19 @@
 // What bounds them on an H100: arithmetic, 6 and 8 * bh * s_q * s_kv * d
 // FLOPs (the TPU cost estimates), against ~5 and ~6 tensors of (bh, S, d)
 // moved.  S and dP are computed by both kernels, so the pair does 14 against
-// the fused kernel's 10; in exchange nothing is shared between blocks.
+// the fused kernel's 10; in exchange nothing is shared between blocks.  In
+// float32 the least time is the FLOPs over 165 TFLOP/s, the rate at which the
+// tensor cores give f32-accurate products by 3xTF32 (495 TFLOP/s TF32 / 3):
+// 5.71 ms for the pair at (192, 1655, 128) and at (96, 1655, 256).
 //
 // Design.  On the TPU the dQ kernel keeps the whole key range in VMEM (one
 // key block at rate 0) and the dK/dV kernel revisits its output block across
 // a sequential query axis.  Blocks on the card run in parallel and in no
 // order, so each block owns its output tile and loops over the other axis
 // inside the block: the dQ kernel one (bh, query tile) looping over key
-// tiles, the dK/dV kernel one (bh, key tile) looping over query tiles (the
-// key-tile backward of flash_bwd_kv.cuh without its dQ reductions; in bf16
-// its Hopper variant).  No block writes another block's output and no sum
-// depends on timing, so two launches on the same inputs give the same bits.
+// tiles, the dK/dV kernel one (bh, key tile) looping over query tiles.  No
+// block writes another block's output and no sum depends on timing, so two
+// launches on the same inputs give the same bits.
 //
 // Tails: key columns >= s_kv score -1e30 (P = 0) against zero K/V rows;
 // query rows >= s_q read no lse or delta and contribute nothing.  Rounding:
@@ -39,21 +41,85 @@
 // they skip one rounding of Q (a relative 2^-9 per element of Q, below the
 // bf16 rounding of dS itself).
 //
-// The dQ kernel's two variants, chosen as for the key-tile backward:
+// Variants, chosen by what the call can observe:
 //
-// * bfloat16 with d % 16 == 0 and 16-byte aligned tensors: tensor cores
-//   (mma.sync m16n8k16, bf16 in, f32 accumulate); four warps of 16 query
-//   rows.  Per key tile each warp computes S and dP in registers, forms dS
-//   there and repacks it straight into the A fragments of dQ += dS K (the C
-//   and A fragment layouts coincide), with K read transposed by
+// * float32 with d % 8 == 0 and 16-byte aligned tensors (the eval-mode
+//   gradient's d = 128 and 256, cli/profile.py --tiny's 24): the tensor cores
+//   in 3xTF32, flash_bwd_dq_tf32_kernel and flash_bwd_dkv_tf32_kernel.  What
+//   held the CUDA-core kernels before them back (23.3 + 27.5 ms at d = 128,
+//   61.7 + 46.6 ms at d = 256, on an H100 at 700 W): f32 FMAs peak at 67
+//   TFLOP/s; each thread of a 16 x 16 layout issued 16 shared loads per 32
+//   FMAs at d <= 128 and 8 per 8 at d = 256 (32 x 32 tiles), so they reached
+//   26% and 10% of that peak; every global load was synchronous, between
+//   __syncthreads().  What this design does:
+//   - mma.sync m16n8k8 in TF32 with f32 accumulators.  Each operand x is
+//     split in registers, as its fragment is loaded, into big = x cut toward
+//     zero to TF32 and small = x - big (cut in turn); a product is a_small
+//     b_big + a_big b_small, then a_big b_big, into the same f32
+//     accumulator.  The dropped a_small b_small is below 2^-20 |a b| and the
+//     cut small below 2^-20 |x|, so the gradients keep f32 accuracy (one
+//     TF32 product alone misses the 1e-4 bound by 4-9x).  The cut happens
+//     in the tensor cores, so a split takes two operations.  Shared memory
+//     holds each tile once, in f32.
+//   - S (or S^T) and dP are computed into registers, dS formed there and fed
+//     straight back as the A operand of the next product.  The tf32 C
+//     fragment (row g: columns 2t, 2t + 1) is not the A fragment (row g:
+//     columns t, t + 4), so the 8-wide contraction slice is permuted: k index
+//     t takes element 2t and t + 4 takes 2t + 1, and B is read at rows 2t and
+//     2t + 1 to match.  A sum does not depend on the order of its terms'
+//     slots, so nothing moves between lanes.
+//   - K-major fragments (A always; B of S and dP) come by ldmatrix, which
+//     reads 8 rows of 16 bytes a matrix: an 8 x 4 block of floats, lane
+//     (g, t) receiving element (g, t), the tf32 fragment's layout.  The
+//     MN-major B of the gradient products (rows 2t and 2t + 1, column g)
+//     takes scalar loads.  Rows padded to d + 4 floats (d % 8 == 0, so the
+//     stride is 4 mod 8 words): ldmatrix's 8 rows fall in 8 distinct 16-byte
+//     bank groups, and the scalar loads of a warp in 32 distinct banks.
+//   - The streamed operand (K/V in the dQ kernel, Q/dO with lse/delta in the
+//     dK/dV kernel) is copied by cp.async (16 bytes a copy, zeros past the
+//     last row).  Shared memory buys either a second stage, whose copy runs
+//     while the tile before it is computed, or a wider tile, which splits
+//     each A fragment once for more products; the card chose per kernel.
+//   - Warps and instructions: mma.sync in TF32 runs at 298-319 TFLOP/s on
+//     the card (about 105 of f32-accurate work in 3xTF32), and every product
+//     here also needs its fragments loaded and split, so the kernels need
+//     many warps to hide latency and few instructions a product: the split
+//     takes x itself as big (two operations, not three), and each warp's
+//     fragments serve as many products as its registers allow.
+//   - Times of the alternatives, from cli/tune_split_bwd.py on an H100 at
+//     700 W: dQ at d = 128 8.29 ms as dispatched, 8.68 with one stage, 11.25
+//     with 8 warps an SM; dK/dV at d = 128 10.86 ms, 11.97 with 16-query
+//     tiles, 15.99 at one block an SM; at d = 256 dK/dV 14.79 ms, 16.94 with
+//     16-query tiles.
+//   - dQ kernel: 16 query rows per pair of warps, each warp of the pair
+//     taking half of every key tile with its own partial dQ in registers for
+//     the whole key loop; the partials are added at the end, in a fixed
+//     order.  d <= 128: 16 warps (128 queries) at 128 registers a thread,
+//     two stages of 32-key tiles, 202.8 KB of shared memory at d = 128 (one
+//     64-key tile at d <= 64); d > 128: 8 warps (64 queries), one 32-key
+//     tile, 195.0 KB at d = 256.
+//   - dK/dV kernel: S^T = K Q^T and dP^T = V dO^T with 16 keys a warp as M,
+//     so P^T and dS^T are the A operands of dV += P^T dO and dK += dS^T Q.
+//     A block holds 64 keys; warps w and w + 4 share 16 of them: w computes
+//     S^T, P^T and dV and hands P^T over through shared memory (a named
+//     barrier of the pair), w + 4 computes dP^T, dS^T and dK.  One sum a
+//     warp stays in registers, so at d <= 128 two blocks of 8 warps fit an
+//     SM (107.3 KB each at d = 128); at d = 256 one (203.3 KB).  32-query
+//     tiles.
+// * bfloat16 with d % 16 == 0 and 16-byte aligned tensors: dQ on the tensor
+//   cores (mma.sync m16n8k16, bf16 in, f32 accumulate); four warps of 16
+//   query rows.  Per key tile each warp computes S and dP in registers,
+//   forms dS there and repacks it straight into the A fragments of dQ += dS
+//   K (the C and A fragment layouts coincide), with K read transposed by
 //   ldmatrix.trans.  dQ stays in registers: 16 x d per warp, d / 2 floats a
 //   thread.  Keys per tile: 64 at d <= 128, 32 at d = 256 (70 and 101 KB of
-//   shared memory).
-// * float32, or any other d <= 256: CUDA cores in f32.  256 threads as
+//   shared memory).  dK/dV: the key-tile backward of flash_bwd_kv.cuh
+//   without its dQ reductions, in its Hopper variant.
+// * any other d <= 256, in either dtype: CUDA cores in f32.  256 threads as
 //   16 x 16; Q, dO, K, V and dS tiles in shared memory as float32 with rows
-//   padded by one float; each thread keeps a slice of dQ in registers.  Tiles
-//   of 64 queries x 64 keys at d <= 128 and 32 x 32 at d = 256 (149 and 136
-//   KB).
+//   padded by one float; each thread keeps a slice of dQ in registers.
+//   Tiles of 64 queries x 64 keys at d <= 128 and 32 x 32 at d = 256 (149
+//   and 136 KB).  dK/dV: the CUDA-core key-tile backward of flash_bwd_kv.cuh.
 
 #include "flash_bwd_kv.cuh"
 
@@ -424,6 +490,507 @@ int dispatch_dq_bf16(const void* q, const void* k, const void* v, const void* do
                                 st);
 }
 
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores in 3xTF32 (d a multiple of 8, 16-byte aligned)
+// ---------------------------------------------------------------------------
+
+// Fragment elements split as x = big + small.  The tensor cores read the top
+// 19 bits of a TF32 operand (sign, exponent, 10 mantissa bits) and ignore the
+// rest, so x itself serves as big (x cut toward zero to TF32), and small = x -
+// big, exact in f32, is cut in turn: |small| < 2^-10 |x|, and big + the cut
+// small lies within 2^-20 |x| of x.  Two operations an element, one fewer
+// than rounding big to nearest.
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x);
+  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+}
+
+// A fragment of m16n8k8: (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
+  FragA f;
+  split_tf32(a0, f.big[0], f.small[0]);
+  split_tf32(a1, f.big[1], f.small[1]);
+  split_tf32(a2, f.big[2], f.small[2]);
+  split_tf32(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+// B fragment of m16n8k8: (k t, column g), (t + 4, g)
+__device__ __forceinline__ FragB split_b(float b0, float b1) {
+  FragB f;
+  split_tf32(b0, f.big[0], f.small[0]);
+  split_tf32(b1, f.big[1], f.small[1]);
+  return f;
+}
+
+// Four 8-row x 4-float blocks of a float32 tile (four 8x8 b16 matrices to
+// ldmatrix): lane i gives the address of row i % 8 of block i / 8 and
+// receives element (row i / 4, column i % 4) of each block, the (g, t)
+// element of a K-major tf32 fragment.  Rows 16-byte aligned.
+__device__ __forceinline__ void ldsm4(float (&r)[4], const float* p) {
+  uint32_t x[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(sm90::smem_u32(p)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = __uint_as_float(x[i]);
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: the two cross terms first, then big x big.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a, const FragB& b) {
+  mma_tf32(c, a.small, b.big[0], b.big[1]);
+  mma_tf32(c, a.big, b.small[0], b.small[1]);
+  mma_tf32(c, a.big, b.big[0], b.big[1]);
+}
+
+// 16 (or 4) bytes global -> shared without the registers; zeros where !ok,
+// and then the source is not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sm90::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sm90::smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows row0 .. row0 + R - 1 of a (rows, d) float32 matrix into a shared tile
+// of row stride ld, zeros past the last row, by NT threads.
+template <int R, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int rows,
+                                          int d, int ld) {
+  const int vecs = d / 4;
+  for (int i = threadIdx.x; i < R * vecs; i += NT) {
+    const int r = i / vecs;
+    const int c = (i - r * vecs) * 4;
+    const bool ok = row0 + r < rows;
+    cp_async16(dst + r * ld + c, src + static_cast<size_t>(ok ? row0 + r : 0) * d + c, ok);
+  }
+}
+
+// Values row0 .. row0 + R - 1 of a float32 row vector, zeros past `rows`.
+template <int R>
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int row0, int rows) {
+  for (int i = threadIdx.x; i < R; i += blockDim.x) {
+    const bool ok = row0 + i < rows;
+    cp_async4(dst + i, src + (ok ? row0 + i : 0), ok);
+  }
+}
+
+// One 8-wide depth step of acc[n] += A B^T: A the 16 rows at a, B^T the 8 NS
+// rows at b (n-tile n: rows 8n .. 8n + 7), both K-major at row stride ld,
+// a and b already at this lane's ldmatrix address for the step; NS even.
+template <int NS>
+__device__ __forceinline__ void score_step(float (&acc)[NS][4], const float* a, const float* b,
+                                           int ld) {
+  float x[4];
+  ldsm4(x, a);  // blocks: rows 0-7 | 8-15 at columns 0-3, then at 4-7
+  const FragA fa = split_a(x[0], x[1], x[2], x[3]);
+  static_assert(NS % 2 == 0, "ldmatrix loads two n-tiles at once");
+#pragma unroll
+  for (int n = 0; n < NS; n += 2) {
+    ldsm4(x, b + 8 * n * ld);  // blocks: n-tile n at columns 0-3 | 4-7, then n + 1
+    mma_3xtf32(acc[n], fa, split_b(x[0], x[1]));
+    mma_3xtf32(acc[n + 1], fa, split_b(x[2], x[3]));
+  }
+}
+
+// This lane's ldmatrix offsets (floats) into a K-major A tile and B^T tile.
+__device__ __forceinline__ int ldsm_a_offset(int lane, int ld) {
+  return (8 * (lane / 8 % 2) + lane % 8) * ld + 4 * (lane / 16);
+}
+__device__ __forceinline__ int ldsm_b_offset(int lane, int ld) {
+  return (8 * (lane / 16) + lane % 8) * ld + 4 * (lane / 8 % 2);
+}
+
+// acc[n] += A B^T over the d columns (see score_step).
+template <int NS>
+__device__ __forceinline__ void scores_3xtf32(float (&acc)[NS][4], const float* a,
+                                              const float* b, int ld, int d, int lane) {
+  a += ldsm_a_offset(lane, ld);
+  b += ldsm_b_offset(lane, ld);
+#pragma unroll 2
+  for (int kk = 0; kk < d; kk += 8) score_step<NS>(acc, a + kk, b + kk, ld);
+}
+
+// Two such products in one loop: s[n] += A0 B0^T and dp[n] += A1 B1^T,
+// the depth loop unrolled U times.
+template <int NS, int U>
+__device__ __forceinline__ void scores2_3xtf32(float (&s)[NS][4], const float* a0,
+                                               const float* b0, float (&dp)[NS][4],
+                                               const float* a1, const float* b1, int ld, int d,
+                                               int lane) {
+  const int ao = ldsm_a_offset(lane, ld);
+  const int bo = ldsm_b_offset(lane, ld);
+#pragma unroll U
+  for (int kk = 0; kk < d; kk += 8) {
+    score_step<NS>(s, a0 + ao + kk, b0 + bo + kk, ld);
+    score_step<NS>(dp, a1 + ao + kk, b1 + bo + kk, ld);
+  }
+}
+
+// acc[c] += A B: A (16 x 8 NS) in the accumulator layout of scores_3xtf32
+// (row g: columns 8n + 2t, 8n + 2t + 1), B the 8 NS rows of `b` (row stride
+// ld), output columns 8c .. 8c + 7 for 8c < d.  The contraction slots of each
+// 8-wide slice are permuted, the same way for A and B: k index t takes
+// element 2t and t + 4 takes 2t + 1, so A is the accumulator as it lies.
+template <int NS, int NO>
+__device__ __forceinline__ void grads_3xtf32(float (&acc)[NO][4], const float (&a)[NS][4],
+                                             const float* b, int ld, int d, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const FragA fa = split_a(a[n][0], a[n][2], a[n][1], a[n][3]);
+    const float* bn = b + (8 * n + 2 * t) * ld + g;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      if (8 * c < d) mma_3xtf32(acc[c], fa, split_b(bn[8 * c], bn[8 * c + ld]));
+  }
+}
+
+// acc * s (16 rows x d, accumulator layout) into rows row0 + g (+ 8) < rows
+// of a (rows, d) float32 matrix.
+template <int NO>
+__device__ __forceinline__ void store_frag_rows(float* out, const float (&acc)[NO][4], int row0,
+                                                int rows, int d, int g, int t, float s) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= rows) continue;
+    float* base = out + static_cast<size_t>(row) * d + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      if (8 * c < d)
+        *reinterpret_cast<float2*>(base + 8 * c) =
+            make_float2(acc[c][2 * h] * s, acc[c][2 * h + 1] * s);
+  }
+}
+
+template <int NR, int BK, int STAGES>
+size_t dq_tf32_smem_bytes(int d) {
+  return sizeof(float) * static_cast<size_t>(2 * 16 * NR + 2 * STAGES * BK) * (d + 4);
+}
+
+// dQ: one block per (query tile of 16 NR rows, bh), 2 NR warps: warps w and
+// w + NR own rows 16w .. 16w + 15, w the first half of each key tile and
+// w + NR the second, each with its own partial dQ; the two are added at the
+// end (in that order).  Shared: Q, dO (16 NR x ld each), then STAGES tiles
+// of K and V (BK x ld each); the partials pass through Q's and dO's space.
+template <int DMAX, int NR, int BK, int STAGES>
+__global__ void __launch_bounds__(64 * NR, 1)
+    flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dq, int s_q, int s_kv, int d, float qscale,
+                             float scale) {
+  constexpr int NT = 64 * NR;
+  constexpr int BQ = 16 * NR;
+  constexpr int NS = BK / 16;   // score n-tiles of 8 keys a warp
+  constexpr int NO = DMAX / 8;  // dQ n-tiles of 8 dims
+  extern __shared__ __align__(16) float smem_f[];
+  const int ld = d + 4;
+  float* qs = smem_f;
+  float* dos = qs + BQ * ld;
+  float* kv_tiles = dos + BQ * ld;  // [stage]: K then V of a key tile
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int rg = warp % NR;
+  const int wrow = 16 * rg;
+  const int wkey = (warp / NR) * (BK / 2);
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const float* kb = k + static_cast<size_t>(bh) * s_kv * d;
+  const float* vb = v + static_cast<size_t>(bh) * s_kv * d;
+
+  load_rows<BQ, NT>(qs, q + static_cast<size_t>(bh) * s_q * d, q0, s_q, d, ld);
+  load_rows<BQ, NT>(dos, dout + static_cast<size_t>(bh) * s_q * d, q0, s_q, d, ld);
+  auto load_tile = [&](int kt, int stage) {
+    float* dst = kv_tiles + stage * 2 * BK * ld;
+    load_rows<BK, NT>(dst, kb, kt, s_kv, d, ld);
+    load_rows<BK, NT>(dst + BK * ld, vb, kt, s_kv, d, ld);
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+
+  // this thread's rows: wrow + g (accumulator elements 0, 1) and + 8 (2, 3)
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wrow + g + 8 * h;
+    const bool ok = row < s_q;
+    lse_r[h] = ok ? lse[static_cast<size_t>(bh) * s_q + row] : 0.f;
+    delta_r[h] = ok ? delta[static_cast<size_t>(bh) * s_q + row] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+
+  for (int it = 0, kt = 0; kt < s_kv; ++it, kt += BK) {
+    if (STAGES == 1 && it > 0) {
+      __syncthreads();  // every warp is done with the previous key tile
+      load_tile(kt, 0);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();  // this key tile has landed (and, two stages, the last is done)
+    if (STAGES == 2 && kt + BK < s_kv) {
+      load_tile(kt + BK, (it + 1) % 2);
+      cp_async_commit();
+    }
+    const float* ks = kv_tiles + (it % STAGES) * 2 * BK * ld + wkey * ld;
+    const float* vs = ks + BK * ld;
+    const int k0 = kt + wkey;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    scores2_3xtf32<NS, NT <= 256 ? 2 : 1>(s, qs + wrow * ld, ks, dp, dos + wrow * ld, vs, ld, d,
+                                          lane);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = score_ds(s[n][e], dp[n][e], lse_r[e >> 1], delta_r[e >> 1],
+                           q0 + wrow + g + 8 * (e >> 1), k0 + 8 * n + 2 * t + (e & 1), s_q,
+                           s_kv, qscale);
+    grads_3xtf32<NS, NO>(acc, s, ks, ld, d, g, t);  // dQ += dS K
+  }
+  // the second key half's partial to the first, through Q's and dO's space
+  float* part = qs + rg * (d / 8) * 128;
+  __syncthreads();  // every warp is done with the last tile
+  if (warp >= NR) {
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      if (8 * c < d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[(c * 4 + e) * 32 + lane] = acc[c][e];
+  }
+  __syncthreads();
+  if (warp >= NR) return;
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+    if (8 * c < d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += part[(c * 4 + e) * 32 + lane];
+  store_frag_rows<NO>(dq + static_cast<size_t>(bh) * s_q * d, acc, q0 + wrow, s_q, d, g, t,
+                      scale);
+}
+
+template <int DMAX, int NR, int BK, int STAGES>
+int launch_dq_tf32(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, int bh, int s_q, int s_kv,
+                   int d, float qscale, float scale, cudaStream_t stream) {
+  if (bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = dq_tf32_smem_bytes<NR, BK, STAGES>(d);
+  auto kernel = flash_bwd_dq_tf32_kernel<DMAX, NR, BK, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s_q + 16 * NR - 1) / (16 * NR), bh);
+  kernel<<<grid, 64 * NR, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), s_q, s_kv, d, qscale,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dK/dV kernel's shape: 8 warps, 64 keys; warps w and w + 4 share keys
+// 16w .. 16w + 15, w computing S^T, P^T and dV, w + 4 dP^T, dS^T and dK.
+// BQ queries per streamed tile.  Shared (floats): K, V (64 x ld each), one
+// stage of Q, dO (BQ x ld each), lse, delta (BQ each), then the P^T
+// hand-over (64 x BQ).
+template <int BQ>
+struct DkvTf32 {
+  static constexpr int NT = 256;
+  static constexpr int BKK = 64;
+  static size_t smem_bytes(int d) {
+    return sizeof(float) * (static_cast<size_t>(2 * BKK + 2 * BQ) * (d + 4) + 2 * BQ + BKK * BQ);
+  }
+};
+
+template <int DMAX, int BQ, int MINB>
+__global__ void __launch_bounds__(256, MINB)
+    flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv, int s_q, int s_kv,
+                              int d, float qscale, float scale) {
+  using L = DkvTf32<BQ>;
+  constexpr int NT = L::NT;
+  constexpr int BKK = L::BKK;
+  constexpr int NS = BQ / 8;    // score n-tiles of 8 queries
+  constexpr int NO = DMAX / 8;  // output n-tiles of 8 dims
+  extern __shared__ __align__(16) float smem_f[];
+  const int ld = d + 4;
+  float* ks = smem_f;
+  float* vs = ks + BKK * ld;
+  float* qs = vs + BKK * ld;
+  float* dos = qs + BQ * ld;
+  float* lse_s = dos + BQ * ld;
+  float* delta_s = lse_s + BQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int grp = warp % 4;       // this warp's 16 keys: 16 grp ..
+  const bool dv_warp = warp < 4;  // S^T, P^T, dV; else dP^T, dS^T, dK
+  float* pbuf = delta_s + BQ + grp * 16 * BQ;  // this pair's P^T
+  const int k0 = blockIdx.x * BKK;
+  const int bh = blockIdx.y;
+  const float* qb = q + static_cast<size_t>(bh) * s_q * d;
+  const float* db = dout + static_cast<size_t>(bh) * s_q * d;
+  const float* lb = lse + static_cast<size_t>(bh) * s_q;
+  const float* deb = delta + static_cast<size_t>(bh) * s_q;
+
+  auto load_tile = [&](int q0) {
+    load_rows<BQ, NT>(qs, qb, q0, s_q, d, ld);
+    load_rows<BQ, NT>(dos, db, q0, s_q, d, ld);
+    load_vec<BQ>(lse_s, lb, q0, s_q);
+    load_vec<BQ>(delta_s, deb, q0, s_q);
+  };
+  load_rows<BKK, NT>(ks, k + static_cast<size_t>(bh) * s_kv * d, k0, s_kv, d, ld);
+  load_rows<BKK, NT>(vs, v + static_cast<size_t>(bh) * s_kv * d, k0, s_kv, d, ld);
+  load_tile(0);
+  cp_async_commit();
+
+  float acc[NO][4];  // dV or dK
+#pragma unroll
+  for (int c = 0; c < NO; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+
+  const int key_lo = k0 + 16 * grp + g;  // this thread's keys: key_lo (e = 0, 1), + 8 (2, 3)
+  for (int q0 = 0; q0 < s_q; q0 += BQ) {
+    if (q0 > 0) {
+      __syncthreads();  // every warp is done with the previous tile
+      load_tile(q0);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed
+
+    float x[NS][4];  // S^T, then P^T; or dP^T, then dS^T
+#pragma unroll
+    for (int n = 0; n < NS; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+    if (dv_warp) {
+      scores_3xtf32<NS>(x, ks + 16 * grp * ld, qs, ld, d, lane);
+      // P^T: keys past s_kv score -1e30, queries past s_q give 0
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * t + (e & 1);
+          const float p = exp2f((key_lo + 8 * (e >> 1) < s_kv ? x[n][e] * qscale : kNegInf) -
+                                lse_s[col]);
+          x[n][e] = q0 + col < s_q ? p : 0.f;
+          pbuf[(4 * n + e) * 32 + lane] = x[n][e];  // to warp grp + 4, same lane
+        }
+      sm90::bar_arrive(1 + grp, 64);
+      grads_3xtf32<NS, NO>(acc, x, dos, ld, d, g, t);  // dV += P^T dO
+    } else {
+      scores_3xtf32<NS>(x, vs + 16 * grp * ld, dos, ld, d, lane);
+      sm90::bar_sync(1 + grp, 64);  // warp grp's P^T of this tile
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[n][e] = pbuf[(4 * n + e) * 32 + lane] * (x[n][e] - delta_s[8 * n + 2 * t + (e & 1)]);
+      grads_3xtf32<NS, NO>(acc, x, qs, ld, d, g, t);  // dK += dS^T Q
+    }
+  }
+  const size_t base = static_cast<size_t>(bh) * s_kv * d;
+  if (dv_warp)
+    store_frag_rows<NO>(dv + base, acc, k0 + 16 * grp, s_kv, d, g, t, 1.f);
+  else
+    store_frag_rows<NO>(dk + base, acc, k0 + 16 * grp, s_kv, d, g, t, scale);
+}
+
+template <int DMAX, int BQ, int MINB>
+int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, int bh, int s_q,
+                    int s_kv, int d, float qscale, float scale, cudaStream_t stream) {
+  using L = DkvTf32<BQ>;
+  if (bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = L::smem_bytes(d);
+  auto kernel = flash_bwd_dkv_tf32_kernel<DMAX, BQ, MINB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s_kv + L::BKK - 1) / L::BKK, bh);
+  kernel<<<grid, L::NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), s_q, s_kv, d, qscale, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float32 takes the 3xTF32 kernels where d % 8 == 0 and every tensor is
+// 16-byte aligned (cp.async copies 16 bytes), else the CUDA-core ones.
+bool tf32_fits(int d, const void* a, const void* b, const void* c, const void* e,
+               const void* f, const void* h) {
+  return d % 8 == 0 && aligned16(a) && aligned16(b) && aligned16(c) && aligned16(e) &&
+         aligned16(f) && aligned16(h);
+}
+
+int dispatch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dq, int bh, int s_q, int s_kv,
+                    int d, float qscale, float scale, cudaStream_t st) {
+  if (!tf32_fits(d, q, k, v, dout, dq, dq))
+    return dispatch_dq<float>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale, scale,
+                              st);
+  if (d <= 64)
+    return launch_dq_tf32<64, 8, 64, 1>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale,
+                                        scale, st);
+  if (d <= 128)
+    return launch_dq_tf32<128, 8, 32, 2>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d,
+                                         qscale, scale, st);
+  return launch_dq_tf32<256, 4, 32, 1>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale,
+                                       scale, st);
+}
+
+int dispatch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, void* dk, void* dv, int bh, int s_q,
+                     int s_kv, int d, float qscale, float scale, cudaStream_t st) {
+  if (!tf32_fits(d, q, k, v, dout, dk, dv)) {
+    const DropoutMask none = make_dropout_mask(0, 0, 0, 0, 0, 1.f);
+    return key_tile_backward<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s_q, s_kv,
+                                    d, qscale, scale, 0, none, st);
+  }
+  if (d <= 64)
+    return launch_dkv_tf32<64, 32, 2>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, d,
+                                      qscale, scale, st);
+  if (d <= 128)
+    return launch_dkv_tf32<128, 32, 2>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, d,
+                                       qscale, scale, st);
+  return launch_dkv_tf32<256, 32, 1>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, d,
+                                     qscale, scale, st);
+}
+
 bool bad_shape(int bh, int s_q, int s_kv, int d) {
   return bh < 1 || s_q < 1 || s_kv < 1 || d < 1 || d > 256 || (s_q + 31) / 32 > 65535 ||
          (s_kv + 31) / 32 > 65535;
@@ -444,8 +1011,7 @@ int ist_flash_bwd_dq(const void* q, const void* k, const void* v, const void* do
   if (bad_shape(bh, s_q, s_kv, d)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dq<float>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale, scale,
-                              st);
+    return dispatch_dq_f32(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale, scale, st);
   if (dtype == 1)
     return dispatch_dq_bf16(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -456,9 +1022,13 @@ int ist_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
                       const float* lse, const float* delta, void* dk, void* dv, int bh, int s_q,
                       int s_kv, int d, float qscale, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s_q, s_kv, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_dkv_f32(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, d, qscale, scale,
+                            st);
   const DropoutMask none = make_dropout_mask(0, 0, 0, 0, 0, 1.f);
   return key_tile_backward<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s_q, s_kv, d,
-                                  qscale, scale, dtype, none, static_cast<cudaStream_t>(stream));
+                                  qscale, scale, dtype, none, st);
 }
 
 }  // extern "C"

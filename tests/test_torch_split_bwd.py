@@ -146,3 +146,80 @@ def test_ptxas_info_groups_the_lines_of_each_entry(monkeypatch):
             "ptxas info    : Used 168 registers, used 3 barriers",
         ]}
     assert _kernels.ptxas_info("no_such_kernel") == {}
+
+
+def _tf32(x):
+    """``x`` cut toward zero to TF32 (sign, exponent and 10 mantissa bits):
+    the part of a float32 operand that the tensor cores read."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """``a @ b`` in float32 with TF32 products, as the f32 split kernels run
+    them: 3 passes split each operand into big = tf32(x) and small = tf32(x -
+    big) and sum a_small b_big + a_big b_small, then a_big b_big; 1 pass is
+    a_big b_big alone."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    acc = _tf32(a - a_big) @ b_big
+    acc += a_big @ _tf32(b - b_big)
+    acc += a_big @ b_big
+    return acc
+
+
+@pytest.mark.parametrize("d", [24, 64, 128])
+def test_3xtf32_keeps_the_split_backward_at_f32_accuracy(d):
+    """The error model of the f32 split kernels: the rate-0 backward of one
+    head (333 tokens, the card check's input distributions) with every
+    product in 3xTF32 stays within 1e-5 of float64 (max |err| / max |ref|),
+    while one TF32 pass lies beyond the card check's 1e-4 bound.  lse and
+    delta come from a float32 forward, as the kernels get them."""
+    rng = np.random.default_rng(20)
+    s = 333
+    q, k = (rng.normal(size=(s, d)) * 0.3 for _ in range(2))
+    v = rng.normal(size=(s, d)) * 0.3 + 0.5
+    dout = rng.normal(size=(s, d))
+    scale = d**-0.5
+
+    t64 = [torch.tensor(a, dtype=torch.float64, requires_grad=True) for a in (q, k, v)]
+    out64 = torch.softmax(t64[0] @ t64[1].T * scale, dim=-1) @ t64[2]
+    want = torch.autograd.grad(out64, t64, torch.tensor(dout))
+
+    qf, kf, vf, df = (torch.tensor(a, dtype=torch.float32) for a in (q, k, v, dout))
+    scores = qf @ kf.T * scale
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    delta = (df * (torch.exp(scores - lse) @ vf)).sum(dim=-1, keepdim=True)
+
+    def rel_errs(passes):
+        p = torch.exp(_tf32_matmul(qf, kf.T, passes) * scale - lse)
+        ds = p * (_tf32_matmul(df, vf.T, passes) - delta)
+        got = (_tf32_matmul(ds, kf, passes) * scale, _tf32_matmul(ds.T, qf, passes) * scale,
+               _tf32_matmul(p.T, df, passes))
+        return [((g.double() - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+
+    assert max(rel_errs(3)) <= 1e-5
+    assert min(rel_errs(1)) > 1e-4
+
+
+def test_tuning_program_times_the_library_source():
+    """``cli/tune_split_bwd.py`` builds a program that includes the kernel
+    source itself, so it times what the library runs, and reports the ptxas
+    lines of the 3xTF32 kernels only."""
+    from imagined_speech_translation_tpu_torch.cli import tune_split_bwd
+
+    src = (_kernels.CSRC / "tune" / "split_bwd.cu").read_text()
+    assert '#include "../flash_bwd_split.cu"' in src
+    assert (_kernels.CSRC / "flash_bwd_split.cu").exists()
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z20flash_bwd_dq_kernelILi64E' for 'sm_90a'",
+        "ptxas info    : Used 90 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z25flash_bwd_dq_tf32_kernelILi128E' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+    ])
+    assert tune_split_bwd.ptxas_lines(log) == [
+        "_Z25flash_bwd_dq_tf32_kernelILi128E: 0 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads",
+        "_Z25flash_bwd_dq_tf32_kernelILi128E: ptxas info    : Used 128 registers, used 1 barriers",
+    ]
