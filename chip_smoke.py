@@ -9,12 +9,15 @@ Phases, each failing loudly (non-zero exit, no final line):
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per
    source, in parallel);
 3. kernels: each kernel against its plain PyTorch twin on the card, at the
-   shapes the serving path gives it, with times; the bf16 forward's ptxas
-   report (no spills); the forward's out within max |err| / max |ref| 1e-4
-   f32 / 1e-2 bf16 of the twin in float32 on the same input values, at flat
-   and peaky inputs, a bound that the twin with V's rows permuted and an
-   all-zero output must exceed; and at head dims 8-256 (12, 24 and 100
-   among them; in bf16 every multiple of 16) on ragged lengths;
+   shapes the serving path gives it, with times; the forward's ptxas report
+   of its bf16 (Hopper) and f32 (3xTF32) kernels (no spills); the forward's
+   out within max |err| / max |ref| 1e-4 f32 / 1e-2 bf16 of the twin in
+   float32 on the same input values, at flat and peaky inputs, a bound that
+   the twin with V's rows permuted and an all-zero output must exceed, and
+   in f32 the twin with one-pass TF32 products too (or, where it does not,
+   4x the kernel's error), with two f32 launches bit-identical; and at head
+   dims 8-256 (12, 24 and 100 among them; every multiple of 16) on ragged
+   lengths, each case naming the variant it runs;
 4. train kernels: the bf16 backward's ptxas report (no spills) and its
    SASS (dQ by 4-float vector reductions only, none without dQ); at the
    training shapes, the dropout keep-mask probe bit for bit, the flash
@@ -22,7 +25,9 @@ Phases, each failing loudly (non-zero exit, no final line):
    bf16, a bound that the plain version without the mask or with another
    seed's mask must exceed), and the fused flash backward (rates 0 and 0.1)
    against autograd through the plain version, in float32 and bfloat16,
-   with times beside ``F.scaled_dot_product_attention``'s; the bf16
+   with times beside ``F.scaled_dot_product_attention``'s; the f32 forward
+   with dropout at head dims 8-256 on ragged lengths, with logical tiles
+   that are multiples of its warp tiles and tiles that are not; the bf16
    forward and backward at every head dim 16-256 that is a multiple of 16,
    and with logical dropout tiles that are not multiples of their own, on
    ragged lengths (the backward also at head dims 12, 24 and 100); two
@@ -58,7 +63,8 @@ Phases, each failing loudly (non-zero exit, no final line):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
-training path and the profile-train path.  ``dropout_mask`` is a check-only probe: the mask it writes is
+training path and the profile-train path (and, for the flash forward, the
+variants its checks ran).  ``dropout_mask`` is a check-only probe: the mask it writes is
 the ``__device__`` function every flash launch with dropout evaluates, so
 its own launch count is 0 on both paths.  Imports nothing of JAX.
 """
@@ -146,6 +152,31 @@ def forward_check(q, k, v, rel_bound, **kw):
                 rel_err_zeros=(torch.zeros_like(ref) - ref).abs().max().item() / top)
 
 
+def forward_variant(dtype: str, d: int) -> str:
+    """The kernel ``ist_flash_fwd`` runs for 16-byte aligned tensors of
+    ``dtype`` at head dim ``d`` (``csrc/flash_fwd.cu``'s dispatch)."""
+    if dtype == "float32" and d % 8 == 0:
+        return "flash_fwd_tf32_kernel"  # tensor cores, 3xTF32 mma.sync
+    if dtype == "bfloat16" and d % 16 == 0:
+        return "flash_fwd_wgmma_kernel"  # Hopper: TMA and wgmma
+    return "flash_fwd_kernel"  # CUDA cores
+
+
+def ptxas_no_spills(fragment: str, tag: str) -> None:
+    """Log the ptxas report of each compiled kernel whose name contains
+    ``fragment``; fail if there is none or one spills."""
+    from imagined_speech_translation_tpu_torch import _kernels
+
+    report = _kernels.ptxas_info(fragment)
+    if not report:
+        raise AssertionError(f"no ptxas report of {fragment} in the build log")
+    for entry, lines in sorted(report.items()):
+        log(f"[{tag}] ptxas {entry}: " + "; ".join(lines))
+        spills = [int(n) for line in lines for n in re.findall(r"(\d+) bytes spill", line)]
+        if not spills or any(spills):
+            raise AssertionError(f"{entry} spills or has no spill line: {lines}")
+
+
 def phase_device():
     import torch
 
@@ -182,7 +213,6 @@ def phase_kernels():
 
     import torch.nn.functional as F
 
-    from imagined_speech_translation_tpu_torch import _kernels
     from imagined_speech_translation_tpu_torch.frontend import (
         SignalFrontend,
         sosfilt,
@@ -218,15 +248,10 @@ def phase_kernels():
     if not err <= bound:
         raise AssertionError(f"sosfilt disagrees with its plain twin: {err} > {bound}")
 
-    # the bf16 forward's Hopper kernel as ptxas built it: no spills
-    report = _kernels.ptxas_info("flash_fwd_wgmma_kernel")
-    if not report:
-        raise AssertionError("no ptxas report of flash_fwd_wgmma_kernel in the build log")
-    for entry, lines in sorted(report.items()):
-        log(f"[kernels] ptxas {entry}: " + "; ".join(lines))
-        spills = [int(n) for line in lines for n in re.findall(r"(\d+) bytes spill", line)]
-        if not spills or any(spills):
-            raise AssertionError(f"{entry} spills or has no spill line: {lines}")
+    # the forward's tensor-core kernels as ptxas built them, bf16 (Hopper)
+    # and f32 (3xTF32): no spills
+    for fragment in ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel"):
+        ptxas_no_spills(fragment, "kernels")
 
     # flash forward: (b*h, 1655, d) for the self-attention (d=128, 6 heads)
     # and the shared cross-scale attention (d=256, 3 heads), batch 16 x 4
@@ -235,7 +260,11 @@ def phase_kernels():
     # on out and lse), at flat inputs (q, k ~ N(0, 0.3^2): a softmax so even
     # that max |ref| ~ 0.03 with v ~ N(0, 0.3^2)) and peaky ones (q, k ~
     # N(0, 1): max |ref| ~ 0.15); the twin with V's rows permuted along the
-    # key axis and an all-zero output must lie farther.
+    # key axis and an all-zero output must lie farther.  In float32 the
+    # kernel runs 3xTF32, so the twin with every product in one TF32 pass
+    # must lie beyond the bound or, where it does not, beyond 4x the kernel's
+    # own error (a kernel that dropped 3xTF32's small terms would land
+    # there), and two launches must give the same bits.
     for heads, d in ((6, 128), (3, 256)):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
@@ -246,17 +275,41 @@ def phase_kernels():
                         .to(dev, dtype) for _ in range(2))
                 v = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3).to(dev, dtype)
                 c = forward_check(q, k, v, rel_bound)
+                extra = {}
+                if dtype == torch.float32:
+                    ref = flash_attention_reference(q, k, v)[0]
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        one_pass = flash_attention_reference(q, k, v)[0]
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
+                    tf32 = (one_pass - ref).abs().max().item() / c["max_abs_ref"]
+                    same = torch.equal(flash_attention(q, k, v)[0], flash_attention(q, k, v)[0])
+                    del ref, one_pass
+                    extra = dict(rel_err_tf32_twin=tf32, deterministic=same,
+                                 tf32_twin_beyond=("the bound" if tf32 > rel_bound else
+                                                   "4x the kernel's error"))
+                    log(f"[kernels] flash_fwd ({64 * heads}, 1655, {d}) f32 {inputs}: the 1xTF32 "
+                        f"twin at {tf32:.2e} (must exceed {rel_bound:.0e} or 4x "
+                        f"{c['rel_err']:.2e}); two launches "
+                        f"{'bit-identical' if same else 'DIFFER'}")
+                    if not (tf32 > rel_bound or tf32 > 4 * c["rel_err"]):
+                        raise AssertionError(f"flash_fwd f32 check cannot tell 1xTF32 products: "
+                                             f"{tf32} against {c['rel_err']}")
+                    if not same:
+                        raise AssertionError("flash_fwd f32: two launches gave different bits")
                 ms = cuda_ms(lambda: flash_attention(q, k, v), iters=5)
                 plain = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5)
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=5)
                 least, by = least_time(4 * q.numel() * 1655, 4 * q.numel() * q.element_size(),
                                        name)
                 checks["flash_fwd"].append(dict(
-                    shape=[64 * heads, 1655, d], dtype=name, inputs=inputs, bound=bound,
-                    rel_bound=rel_bound, **c, ms=ms, plain_ms=plain, library_ms=lib,
-                    bound_ms=least, bound_by=by,
+                    shape=[64 * heads, 1655, d], dtype=name, variant=forward_variant(name, d),
+                    inputs=inputs, bound=bound, rel_bound=rel_bound, **c, **extra, ms=ms,
+                    plain_ms=plain, library_ms=lib, bound_ms=least, bound_by=by,
                 ))
-                log(f"[kernels] flash_fwd ({64 * heads}, 1655, {d}) {name} {inputs}: max|err| "
+                log(f"[kernels] flash_fwd ({64 * heads}, 1655, {d}) {name} "
+                    f"[{forward_variant(name, d)}] {inputs}: max|err| "
                     f"{c['max_abs_err']:.3e} (max|ref| {c['max_abs_ref']:.3e}), lse max|err| "
                     f"{c['lse_max_abs_err']:.3e} (bound {bound:.0e}); max|err|/max|ref| "
                     f"{c['rel_err']:.2e} (bound {rel_bound:.0e}), the twin with V permuted "
@@ -275,24 +328,25 @@ def phase_kernels():
     # other head dims and ragged lengths (200 queries x 333 keys), peaky
     # inputs, correctness only: both dtypes; 8-100 and the reference heads'
     # (8,4,4) 96/192 include head dims that are not multiples of 16 (the
-    # CUDA-core variant also in bf16) and of 8 (12, 24, 100: cli/profile.py
-    # --tiny has 12 and 24); and in bf16 every head dim the Hopper kernel
-    # takes, 16-256 in steps of 16
+    # CUDA-core variant in bf16, the 3xTF32 one in f32) and of 8 (12 and
+    # 100 on the CUDA cores in both dtypes: cli/profile.py --tiny has 12 and
+    # 24); and in both dtypes every multiple of 16 up to 256
     worst = {}
     cases = [(d, dt) for d in (8, 12, 24, 40, 48, 96, 100, 192)
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [(d, torch.bfloat16) for d in range(16, 257, 16)]
+    cases += [(d, dt) for d in range(16, 257, 16) for dt in (torch.float32, torch.bfloat16)
+              if (d, dt) not in cases]
     for d, dtype in cases:
         name = str(dtype).removeprefix("torch.")
         q = torch.from_numpy(rng.normal(size=(2, 3, 200, d)).astype(np.float32))
         kv = torch.from_numpy(rng.normal(size=(2, 2, 3, 333, d)).astype(np.float32))
         q, k, v = q.to(dev, dtype), kv[0].to(dev, dtype), kv[1].to(dev, dtype)
         c = forward_check(q, k, v, FWD_REL[name])
-        worst[(d, name)] = c["rel_err"]
+        worst[(d, name, forward_variant(name, d).removeprefix("flash_fwd_"))] = c["rel_err"]
         if not (c["rel_err"] <= FWD_REL[name] < min(c["rel_err_permuted_v"], c["rel_err_zeros"])
                 and c["lse_max_abs_err"] <= FWD_ABS[name]):
             raise AssertionError(f"flash_fwd d={d} {dtype}: {c}")
-    log("[kernels] flash_fwd (6, 200 x 333, d) max|err|/max|ref| by (d, dtype): "
+    log("[kernels] flash_fwd (6, 200 x 333, d) max|err|/max|ref| by (d, dtype, variant): "
         + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
     return checks
 
@@ -343,7 +397,6 @@ def phase_train_kernels():
         dropout_blocks,
         tile_keep_mask_reference,
     )
-    from imagined_speech_translation_tpu_torch import _kernels
     from imagined_speech_translation_tpu_torch.ops.flash_attention import (
         backward_dkv,
         backward_fused,
@@ -357,14 +410,7 @@ def phase_train_kernels():
     checks = {"dropout_mask": [], "flash_fwd": [], "flash_bwd": []}
 
     # the bf16 backward's Hopper kernel as ptxas built it: no spills
-    report = _kernels.ptxas_info("flash_bwd_wgmma_kernel")
-    if not report:
-        raise AssertionError("no ptxas report of flash_bwd_wgmma_kernel in the build log")
-    for entry, lines in sorted(report.items()):
-        log(f"[train-kernels] ptxas {entry}: " + "; ".join(lines))
-        spills = [int(n) for line in lines for n in re.findall(r"(\d+) bytes spill", line)]
-        if not spills or any(spills):
-            raise AssertionError(f"{entry} spills or has no spill line: {lines}")
+    ptxas_no_spills("flash_bwd_wgmma_kernel", "train-kernels")
     # and as the card runs it: dQ (kDQ, the last template flag) only by
     # 4-float vector reductions, the dK/dV-only kernel without any
     for entry, ops in sorted(sass_reductions("flash_bwd_wgmma_kernel").items()):
@@ -448,12 +494,14 @@ def phase_train_kernels():
             io = q.numel() * q.element_size()  # bytes of one (bh, S, d) tensor
             least, by = least_time(flops, 4 * io + 4 * bh * S, name)
             checks["flash_fwd"].append(dict(
-                shape=[bh, S, d], dtype=name, dropout=rate, max_abs_err=err,
-                lse_max_abs_err=lse_err, bound=fwd_bound, rel_err=rel, rel_bound=fwd_rel,
+                shape=[bh, S, d], dtype=name, variant=forward_variant(name, d), dropout=rate,
+                max_abs_err=err, lse_max_abs_err=lse_err, bound=fwd_bound, rel_err=rel,
+                rel_bound=fwd_rel,
                 rel_err_vs_no_mask=wrong[0], rel_err_vs_next_seed=wrong[1], ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=least, bound_by=by,
             ))
-            log(f"[train-kernels] flash_fwd ({bh}, {S}, {d}) {name} dropout {rate}: max|err| "
+            log(f"[train-kernels] flash_fwd ({bh}, {S}, {d}) {name} [{forward_variant(name, d)}] "
+                f"dropout {rate}: max|err| "
                 f"{err:.3e} (max|ref| {top:.3e}), lse {lse_err:.3e} (bound {fwd_bound:.0e}); "
                 f"max|err|/max|ref| {rel:.2e} (bound {fwd_rel:.0e}), against no mask "
                 f"{wrong[0]:.2e} and the next seed's {wrong[1]:.2e} (must exceed it); "
@@ -522,6 +570,34 @@ def phase_train_kernels():
                                          f"from the rate-0 ones: {apart} <= {bwd_bound}")
             del q, k, v, dout
             torch.cuda.empty_cache()
+
+    # the f32 forward with dropout on ragged lengths at head dims 8-256 (12
+    # and 100 on the CUDA cores, the others 3xTF32), with logical tiles
+    # that are multiples of the 3xTF32 kernel's warp tiles (128 x 128: the
+    # mask's hash input hoisted per warp tile) and tiles that are not (96 x
+    # 40: the per-element mask); out within 1e-4 (max |err| / max |ref|) of
+    # the plain version in float32, and farther than that from its rate-0 out
+    # (inputs from their own generator, so the later checks keep theirs)
+    f32_fwd, f32_rng = {}, np.random.default_rng(11)
+    for d in (8, 12, 24, 64, 100, 128, 192, 256):
+        for bq, bk in ((128, 128), (96, 40)):
+            q = torch.from_numpy(f32_rng.normal(size=(2, 3, 200, d)).astype(np.float32) * 0.3)
+            kv = torch.from_numpy(f32_rng.normal(size=(2, 2, 3, 333, d)).astype(np.float32) * 0.3)
+            q, k, v = q.to(dev), kv[0].to(dev), kv[1].to(dev)
+            kw = dict(dropout_rate=rate, dropout_seed=seed, block_q=bq, block_k=bk)
+            out = flash_attention(q, k, v, **kw)[0]
+            ref = flash_attention_reference(q, k, v, **kw)[0]
+            top = ref.abs().max().item()
+            f32_fwd[(d, bq, bk)] = ((out - ref).abs().max().item() / top,
+                                    (out - flash_attention_reference(q, k, v)[0]).abs().max()
+                                    .item() / top)
+            if not f32_fwd[(d, bq, bk)][0] <= FWD_REL["float32"] < f32_fwd[(d, bq, bk)][1]:
+                raise AssertionError(f"flash_fwd f32 d={d} tiles {bq}x{bk}: "
+                                     f"{f32_fwd[(d, bq, bk)]} from its twin and from rate 0 "
+                                     "(bound 1e-4)")
+    log("[train-kernels] flash_fwd f32 (6, 200 x 333, d) dropout 0.1, max|err|/max|ref| "
+        "(against the rate-0 out, must exceed 1e-4) by (d, block_q, block_k): "
+        + ", ".join(f"{c}: {a:.1e} ({b:.2f})" for c, (a, b) in f32_fwd.items()))
 
     # other head dims (96/192: reference heads (8,4,4); 12/24: cli/profile.py
     # --tiny) and ragged lengths, correctness only: both dtypes and both
@@ -653,14 +729,7 @@ def phase_split_kernels():
 
     # the f32 3xTF32 kernels as ptxas built them: no spills
     for fragment in ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"):
-        report = _kernels.ptxas_info(fragment)
-        if not report:
-            raise AssertionError(f"no ptxas report of {fragment} in the build log")
-        for entry, lines in sorted(report.items()):
-            log(f"[split-kernels] ptxas {entry}: " + "; ".join(lines))
-            spills = [int(n) for line in lines for n in re.findall(r"(\d+) bytes spill", line)]
-            if not spills or any(spills):
-                raise AssertionError(f"{entry} spills or has no spill line: {lines}")
+        ptxas_no_spills(fragment, "split-kernels")
     bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
     def inputs(b, h, s_q, s_kv, d, dtype):
@@ -1149,8 +1218,9 @@ def phase_profile_train(smi: str):
         raise AssertionError(f"profile train launched {launches} in {runs} runs, want {want} "
                              "per run")
 
-    # the JAX script's --tiny config (head dims 12 and 24, which the kernels
-    # take on their CUDA-core variants), one warm-up and one traced iteration
+    # the JAX script's --tiny config (head dims 12, which the kernels take on
+    # their CUDA-core variants, and 24, on their 3xTF32 ones), one warm-up
+    # and one traced iteration
     _kernels.reset_launch_counts()
     tiny = profile.main(["--what", "train", "--tiny", "--device", "cuda", "--iters", "1",
                          "--out", "build/profile/smoke_profile_train_tiny"])
@@ -1188,8 +1258,10 @@ def summary(checks, launches_by_path):
     for k in _kernels.KERNELS:
         main = next(c for c in checks[k.name] if HEADLINE[k.name](c))
         by_path = {path: n[k.name] for path, n in launches_by_path.items()}
+        variants = sorted({c["variant"] for c in checks[k.name] if "variant" in c})
         out.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+            **({"variants": variants} if variants else {}),
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in checks[k.name]),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],

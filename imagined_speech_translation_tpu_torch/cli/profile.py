@@ -22,8 +22,9 @@ annotated ``<what>_<i>`` and timed on the host clock around synchronized
 calls, under ``utils.profiling.trace``, which writes ``<out>/trace.json``.  On
 the card the device time by kernel name follows (``cli.profile_slice.
 device_summary``).  The default device is the card; ``--device cpu`` runs the
-plain twins of the kernels.  ``--tiny`` has head dims 12 and 24, which the
-flash kernels take on their CUDA-core variants.
+plain twins of the kernels.  ``--tiny`` has head dims 12 and 24: the flash
+kernels take 12 on their CUDA-core variants and 24, a multiple of 8, on the
+float32 tensor-core (3xTF32) ones.
 """
 
 from __future__ import annotations

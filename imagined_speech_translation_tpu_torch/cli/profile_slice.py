@@ -2,14 +2,15 @@
 goes on one CUDA card.
 
     python -m imagined_speech_translation_tpu_torch.cli.profile_slice \
-        [--what serve|train] [--trace PATH]
+        [--what serve|train] [--compute-dtype bfloat16|float32] [--trace PATH]
 
 ``--what serve`` (the default) builds the serving path as ``chip_smoke.py``
 times it: ``default_config()``, random weights from seed 0, BatchNorm
-folded, bfloat16, 16 raw windows of 125 channels, beam 3, decode length
-pinned to 16.  It prints seconds per batch through ``build_decode_fn`` and
-through the encoder alone (median of 5 after one warm-up; host clock around
-synchronized calls).
+folded, 16 raw windows of 125 channels, beam 3, decode length pinned to 16,
+in ``--compute-dtype`` (bfloat16 by default; float32 is what the serve
+CLIs run when they are given no dtype).  It prints seconds per batch
+through ``build_decode_fn`` and through the encoder alone (median of 5
+after one warm-up; host clock around synchronized calls).
 
 ``--what train`` builds the default training step as ``chip_smoke.py`` runs
 it: ``default_config()`` with its composite loss, mixed precision and fused
@@ -176,6 +177,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--what", choices=("serve", "train"), default="serve",
                     help="a serving batch or a training step")
+    ap.add_argument("--compute-dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the serving batch's compute dtype (--what serve)")
     ap.add_argument("--trace", default=None,
                     help="where to write the Chrome trace (build/profile/<what>_trace.json)")
     args = ap.parse_args(argv)
@@ -198,19 +201,20 @@ def main(argv=None) -> int:
     tok = ChineseCharTokenizer(synthetic_vocab(cfg.model.bart.vocab_size))
     spec = RegionSpec.from_channel_names(synthetic_montage())
     model = build_model(cfg.model, T, seed=0, device=dev)
+    dtype = getattr(torch, args.compute_dtype)
     decode_fn = build_decode_fn(cfg, tok, spec, model, device=dev, fold_bn=True,
-                                compute_dtype=torch.bfloat16)
+                                compute_dtype=dtype)
     windows = np.random.default_rng(1).normal(size=(16, 125, T)).astype(np.float32)
 
-    # the encoder alone, on the same folded bf16 weights and preprocessed input
-    enc_model = fold_batch_norm(model).to(torch.bfloat16).to(dev).eval()
+    # the encoder alone, on the same folded weights and preprocessed input
+    enc_model = fold_batch_norm(model).to(dtype).to(dev).eval()
     R, C = spec.channel_mask.shape
     mask = torch.as_tensor(spec.channel_mask, device=dev)
     with torch.inference_mode():
         clean = SignalFrontend(cfg.frontend).preprocess(torch.from_numpy(windows).to(dev))
         stacked = clean[:, torch.as_tensor(spec.gather_indices.reshape(-1), device=dev)]
         stacked = torch.where(mask[None, :, :, None], stacked.reshape(16, R, C, T), 0.0)
-        stacked = stacked.to(torch.bfloat16)
+        stacked = stacked.to(dtype)
         enc = lambda: enc_model.encode(stacked, mask)  # noqa: E731
         enc()
         enc_s, enc_all = median_seconds(enc)
@@ -218,9 +222,9 @@ def main(argv=None) -> int:
 
     decode_fn(windows)
     batch_s, batch_all = median_seconds(lambda: decode_fn(windows))
-    print(f"batch {batch_s:.4f} s (median of 5: {[round(t, 4) for t in batch_all]}), "
-          f"{16 / batch_s:.2f} windows/s; encode {enc_s:.4f} s "
-          f"(median of 5: {[round(t, 4) for t in enc_all]})", flush=True)
+    print(f"{args.compute_dtype} batch {batch_s:.4f} s (median of 5: "
+          f"{[round(t, 4) for t in batch_all]}), {16 / batch_s:.2f} windows/s; encode "
+          f"{enc_s:.4f} s (median of 5: {[round(t, 4) for t in enc_all]})", flush=True)
 
     print_profile(lambda: decode_fn(windows), trace, batch_s)
     print(smi, flush=True)

@@ -11,9 +11,10 @@
 // against ~4 (bh, S, d) tensors moved: 0.545 ms at both serving shapes,
 // (384, 1655, 128) and (192, 1655, 256), and 0.136 ms at both training
 // shapes, (96, 1655, 128) and (48, 1655, 256), at the bf16 tensor-core peak
-// of 989 TFLOP/s.  The (S, S) score matrix never leaves the chip.
+// of 989 TFLOP/s; in float32 3.264 and 0.816 ms at 165 TFLOP/s (3xTF32,
+// below).  The (S, S) score matrix never leaves the chip.
 //
-// Semantics, both variants: scores are scaled by scale * log2(e) in f32
+// Semantics, all variants: scores are scaled by scale * log2(e) in f32
 // after the product, keys >= s_kv score -1e30 and padded V rows are zero, as
 // in the TPU kernel; the online softmax runs in f32 with exp2f; the output is
 // written in the input dtype, rows >= s_q not at all, and the base-2
@@ -27,7 +28,7 @@
 // regenerates the same mask without storing it.  The seed is a kernel
 // argument drawn on the host.
 //
-// Two variants, chosen by what the call can observe:
+// Three variants, chosen by what the call can observe:
 //
 // * bfloat16 with d % 16 == 0 and 16-byte aligned tensors (every serving and
 //   training shape): built for Hopper from the helpers of sm90.cuh, 384
@@ -62,12 +63,56 @@
 //   Tails: TMA fills zeros past S and past d (whole boxes past s_kv
 //   included); O is written by guarded stores.  Shared memory: Q 32 KB and
 //   3 x 64 KB of K/V stages at d = 128, Q 64 KB and 2 x 64 KB at d = 256.
-// * float32, or any other d <= 256: a CUDA-core kernel that keeps float32
-//   products exact (tensor cores would round f32 inputs to TF32), bounded by
-//   the FMA rate and the shared-memory loads feeding it.  One block per (bh,
-//   64-query tile), looping over key tiles of 64 (d <= 128) or 32 (d > 128)
-//   keys held in dynamic shared memory (up to ~137 KB at d = 256 in f32);
-//   256 threads; Q, K, V and the probability tile in shared memory as
+// * float32 with d % 8 == 0 and 16-byte aligned tensors (every serving,
+//   training and eval-mode gradient shape in f32, cli/profile.py --tiny's 24):
+//   flash_fwd_tf32_kernel, on the tensor cores in 3xTF32 (tf32.cuh, shared
+//   with the split backward).  Its bound is the FLOPs over 165 TFLOP/s, the
+//   rate of f32-accurate products by 3xTF32 (495 TFLOP/s TF32 / 3): 3.264 ms
+//   at both serving shapes and 0.816 ms at both training shapes.  What held
+//   the CUDA-core variant before it back (24.42 ms at (384, 1655, 128), 36.61
+//   ms at (192, 1655, 256), on an H100 at 700 W): f32 FMAs peak at 67
+//   TFLOP/s; each thread of a 16 x 16 layout fed its FMAs with scalar
+//   shared-memory loads; every global load was synchronous, between
+//   __syncthreads(); at d > 128 its key tile was 32 keys.  It reached 22.0
+//   and 14.7 TFLOP/s, 13% and 9% of the 3xTF32 bound.  What this design does:
+//   - S = Q K^T and O += P V by mma.sync m16n8k8 in TF32, each operand split
+//     into big and small in registers, three products a step into f32
+//     accumulators (one TF32 product alone misses the 1e-4 bound); S is
+//     scaled by qscale in f32 after the product;
+//   - each warp owns 16 query rows and keeps S, the row max m, its share of
+//     the row sum l and O (d / 2 floats a thread) in registers: the online
+//     softmax runs in the accumulator layout (row g: columns 2t, 2t + 1; two
+//     shuffles reduce a row), and P is fed from the S registers as they lie
+//     as the A operand of P V, with the contraction slots permuted and V read
+//     MN-major at rows 2t and 2t + 1, so P never touches shared memory;
+//   - Q once and K and V by key tile, by cp.async with zeros past s_q and
+//     s_kv, rows padded to d + 4 floats, K-major fragments by ldmatrix;
+//   - each 64-key tile is split across a pair of warps that share 16 rows,
+//     each with its own m, l and O; at the end the pair merges through
+//     shared memory in a fixed order (m = max(m0, m1), O and l scaled by
+//     2^(m0 - m) and 2^(m1 - m)), so there are no atomics and two launches
+//     give the same bits.  d <= 128: 16 warps (128 queries) a block, two
+//     stages of 64 keys, whose next copy runs under the current tile
+//     (202.8 KB at d = 128); d > 128: 8 warps (64 queries), one 64-key
+//     tile (199.7 KB at d = 256), since O takes 128 registers a thread;
+//   - dropout: each p (the row sum keeps the undropped one) times keep *
+//     inv_keep, the keep bit of (bh, row, col) from dropout_mask.cuh, its
+//     hash input hoisted to the warp's 16 x 32 slice where that lies inside
+//     one logical tile (dropout_tile_base), else per element.
+//   Times of the alternatives, from cli/tune_split_bwd.py --program fwd_tf32
+//   on an H100 at 700 W: at (384, 1655, 128) 10.96 ms as dispatched, 12.15
+//   with two 32-key stages, 11.80 with one 64-key tile, 12.72 with one
+//   128-key tile (which spills), 16.35 with 8 warps an SM; at (192, 1655,
+//   256) 16.35 ms as dispatched, 17.16 with two 32-key stages, 17.07 with
+//   10 warps, and 15.26 with 12 warps (96 queries, one 32-key tile), which
+//   ptxas can only fit in the 168 registers a thread that 12 warps leave by
+//   spilling.  ptxas: 103 registers at d <= 64, 127 at d <= 128, 211 at
+//   d = 256, no spills.
+// * any other d <= 256, in either dtype: a CUDA-core kernel in f32, bounded
+//   by the FMA rate and the shared-memory loads feeding it.  One block per
+//   (bh, 64-query tile), looping over key tiles of 64 (d <= 128) or 32 (d >
+//   128) keys held in dynamic shared memory (up to ~137 KB at d = 256 in
+//   f32); 256 threads; Q, K, V and the probability tile in shared memory as
 //   float32 (bf16 widened on load); each thread owns a 4 x (BK/16) tile of
 //   scores and a 4 x (DMAX/16) tile of the output in registers, q is
 //   pre-scaled, and row max/sum are reduced across the 16 threads of a row
@@ -81,6 +126,7 @@
 
 #include "dropout_mask.cuh"
 #include "sm90.cuh"
+#include "tf32.cuh"
 
 
 namespace {
@@ -608,6 +654,231 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores in 3xTF32 (d a multiple of 8, 16-byte aligned)
+// ---------------------------------------------------------------------------
+
+// Shared memory: Q (16 NR rows), then STAGES stages of a key tile's K and V
+// (BK rows each), rows of d + 4 floats; at the end the same space holds the
+// second key half's partial output, row max and row sum for the merge.
+template <int NR, int BK, int STAGES>
+size_t fwd_tf32_smem_bytes(int d) {
+  const size_t tiles = static_cast<size_t>(16 * NR + 2 * STAGES * BK) * (d + 4);
+  const size_t merge = static_cast<size_t>(NR) * 32 * (d / 2 + 4);
+  return sizeof(float) * (tiles > merge ? tiles : merge);
+}
+
+// The online-softmax step of one warp's key slice on its scores s (raw Q K^T
+// of 16 rows x 8 NS keys from key0, accumulator layout: element e of n-tile n
+// at row g + 8 (e / 2), key key0 + 8 n + 2 t + e % 2): scales them by
+// qscale, scores keys >= s_kv -1e30, updates the row max m and this thread's
+// share of the row sum l (undropped probabilities), and leaves in s the
+// probabilities to multiply V with (dropped and scaled when dropout is on).
+// Sets alpha, the factors that rescale the rows' earlier output.  The caller
+// runs it only where key0 < s_kv, so every row max is finite.
+template <int NS>
+__device__ __forceinline__ void softmax_tf32(float (&s)[NS][4], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int key0, int s_kv,
+                                             float qscale, const DropoutMask& drop, bool hoist,
+                                             int bh, int row0, int g, int t) {
+  const bool tail = key0 + 8 * NS > s_kv;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[n][e] * qscale;
+      if (tail && key0 + 8 * n + 2 * t + (e & 1) >= s_kv) x = kNegInf;
+      s[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    alpha[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
+  // the keep bits: where the warp's 16 x 8 NS tile lies inside one logical
+  // tile, the hash input hoisted to the tile (dropout_tile_base), else per
+  // element; both give dropout_keep's bits
+  uint32_t base = 0;
+  if (drop.on && hoist)
+    base = dropout_tile_base(drop, bh, row0, key0) +
+           static_cast<uint32_t>(g) * static_cast<uint32_t>(drop.block_k) + 2 * t;
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float p = exp2f(s[n][e] - m[h]);
+      l[h] += p;  // the normalizer sums the undropped probabilities
+      if (drop.on) {
+        const bool keep =
+            hoist ? dropout_keep_at(drop, base,
+                                    8 * h * static_cast<uint32_t>(drop.block_k) + 8 * n + (e & 1))
+                  : dropout_keep(drop, bh, row0 + g + 8 * h, key0 + 8 * n + 2 * t + (e & 1));
+        p = keep ? p * drop.inv_keep : 0.f;
+      }
+      s[n][e] = p;
+    }
+}
+
+// One block per (bh, tile of 16 NR queries), 2 NR warps: warps w and w + NR
+// own query rows 16w .. 16w + 15, w the first half of each key tile and
+// w + NR the second, each with its own row max, row sum and output in
+// registers for the whole key loop.  At the end w + NR hands its state to w
+// through shared memory and w merges the two, in that order, and writes the
+// rows.  Per key slice: S = Q K^T (scores_3xtf32, both K-major by ldmatrix),
+// the online softmax in the accumulator layout, O += P V (grads_3xtf32, P
+// fed from the S registers as they lie, V read MN-major at rows 2t, 2t + 1).
+template <int DMAX, int NR, int BK, int STAGES>
+__global__ void __launch_bounds__(64 * NR, 1)
+    flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int n_qt, int s_q, int s_kv, int d,
+                          float qscale, DropoutMask drop) {
+  constexpr int NT = 64 * NR;
+  constexpr int BQ = 16 * NR;
+  constexpr int NS = BK / 16;   // score n-tiles of 8 keys a warp
+  constexpr int NO = DMAX / 8;  // output n-tiles of 8 dims
+  extern __shared__ __align__(16) float smem_f[];
+  const int ld = d + 4;
+  float* qs = smem_f;
+  float* kv_tiles = qs + BQ * ld;  // [stage]: K then V of a key tile
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int rg = warp % NR;
+  const int wrow = 16 * rg;
+  const int wkey = (warp / NR) * (BK / 2);
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x - bh * n_qt) * BQ;
+  const float* kb = k + static_cast<size_t>(bh) * s_kv * d;
+  const float* vb = v + static_cast<size_t>(bh) * s_kv * d;
+
+  load_rows<BQ, NT>(qs, q + static_cast<size_t>(bh) * s_q * d, q0, s_q, d, ld);
+  auto load_tile = [&](int kt, int stage) {
+    float* dst = kv_tiles + stage * 2 * BK * ld;
+    load_rows<BK, NT>(dst, kb, kt, s_kv, d, ld);
+    load_rows<BK, NT>(dst + BK * ld, vb, kt, s_kv, d, ld);
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+
+  // a warp's 16 x BK / 2 slice lies inside one logical dropout tile
+  const bool hoist = drop.block_q % 16 == 0 && drop.block_k % (BK / 2) == 0;
+  float acc[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0, kt = 0; kt < s_kv; ++it, kt += BK) {
+    if (STAGES == 1 && it > 0) {
+      __syncthreads();  // every warp is done with the previous key tile
+      load_tile(kt, 0);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();  // this key tile has landed (and, two stages, the last is done)
+    if (STAGES == 2 && kt + BK < s_kv) {
+      load_tile(kt + BK, (it + 1) % 2);
+      cp_async_commit();
+    }
+    const int k0 = kt + wkey;
+    if (k0 >= s_kv) continue;  // this warp's half lies past the last key
+    const float* ks = kv_tiles + (it % STAGES) * 2 * BK * ld + wkey * ld;
+    const float* vs = ks + BK * ld;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    scores_3xtf32<NS>(s, qs + wrow * ld, ks, ld, d, lane);  // S = Q K^T
+    float alpha[2];
+    softmax_tf32<NS>(s, m, l, alpha, k0, s_kv, qscale, drop, hoist, bh, q0 + wrow, g, t);
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      acc[c][0] *= alpha[0];
+      acc[c][1] *= alpha[0];
+      acc[c][2] *= alpha[1];
+      acc[c][3] *= alpha[1];
+    }
+    grads_3xtf32<NS, NO>(acc, s, vs, ld, d, g, t);  // O += P V
+  }
+
+  // row sums over the four lanes of a row, then the second key half's state
+  // to the first, through the tiles' space
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const int no = d / 8;
+  float* part = smem_f + rg * 32 * (4 * no + 4);
+  __syncthreads();  // every warp is done with Q and the last tiles
+  if (warp >= NR) {
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      if (c < no)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[(c * 4 + e) * 32 + lane] = acc[c][e];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      part[(4 * no + h) * 32 + lane] = m[h];
+      part[(4 * no + 2 + h) * 32 + lane] = l[h];
+    }
+  }
+  __syncthreads();
+  if (warp >= NR) return;
+  float a0[2], a1[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m1 = part[(4 * no + h) * 32 + lane];
+    const float mm = fmaxf(m[h], m1);
+    a0[h] = exp2f(m[h] - mm);
+    a1[h] = exp2f(m1 - mm);
+    l[h] = l[h] * a0[h] + part[(4 * no + 2 + h) * 32 + lane] * a1[h];
+    m[h] = mm;
+  }
+  // O = (O0 a0 + O1 a1) / l, lse = m + log2 l, rows < s_q only
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lc = fmaxf(l[h], 1e-30f);
+    inv[h] = 1.f / lc;
+    const int row = q0 + wrow + g + 8 * h;
+    if (t == 0 && row < s_q) lse[static_cast<size_t>(bh) * s_q + row] = m[h] + log2f(lc);
+  }
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+    if (c < no)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[c][e] = (acc[c][e] * a0[e >> 1] + part[(c * 4 + e) * 32 + lane] * a1[e >> 1]) *
+                    inv[e >> 1];
+  store_frag_rows<NO>(o + static_cast<size_t>(bh) * s_q * d, acc, q0 + wrow, s_q, d, g, t, 1.f);
+}
+
+template <int DMAX, int NR, int BK, int STAGES>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
+                cudaStream_t stream) {
+  const long long n_qt = (s_q + 16 * NR - 1) / (16 * NR);
+  if (n_qt * bh > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fwd_tf32_smem_bytes<NR, BK, STAGES>(d);
+  auto kernel = flash_fwd_tf32_kernel<DMAX, NR, BK, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(n_qt * bh), 64 * NR, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, static_cast<int>(n_qt), s_q, s_kv, d, qscale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T>
@@ -617,6 +888,20 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (d <= 64) return launch<T, 64, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
   if (d <= 128) return launch<T, 128, 64>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
   return launch<T, 256, 32>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+}
+
+// float32 takes the 3xTF32 kernel where d % 8 == 0 and every tensor is
+// 16-byte aligned (cp.async copies 16 bytes), else the CUDA-core one.
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                 int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
+                 cudaStream_t st) {
+  if (d % 8 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return dispatch<float>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (d <= 64)
+    return launch_tf32<64, 8, 64, 2>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (d <= 128)
+    return launch_tf32<128, 8, 64, 2>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  return launch_tf32<256, 4, 64, 1>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
 }
 
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
@@ -649,7 +934,7 @@ int ist_flash_fwd(const void* q, const void* k, const void* v, void* o, float* l
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropoutMask drop = make_dropout_mask(dropout, seed, threshold, block_q, block_k, inv_keep);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
+  if (dtype == 0) return dispatch_f32(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
   if (dtype == 1) return dispatch_bf16(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

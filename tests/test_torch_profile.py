@@ -1,10 +1,15 @@
-"""The profile script's trace arithmetic and its synthetic serving inputs
-(the vocab and montage that ``chip_smoke.py`` also decodes with)."""
+"""The profile script's trace arithmetic, its synthetic serving inputs
+(the vocab and montage that ``chip_smoke.py`` also decodes with) and its
+serving dtype flag."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from imagined_speech_translation_tpu.config import default_config
+from imagined_speech_translation_tpu_torch.cli import profile_slice
 from imagined_speech_translation_tpu_torch.cli.profile_slice import (
     device_summary,
     synthetic_montage,
@@ -57,3 +62,30 @@ def test_synthetic_inputs_fit_the_full_width_config():
     assert np.array_equal(np.sort(spec.gather_indices[spec.channel_mask]),
                           np.sort([labels.index(ch) for r in ELECTRODE_REGIONS.values()
                                    for ch in r]))
+
+
+@pytest.mark.parametrize("argv, want", [
+    ([], torch.bfloat16),
+    (["--compute-dtype", "float32"], torch.float32),
+])
+def test_compute_dtype_reaches_build_decode_fn(monkeypatch, argv, want):
+    """``--compute-dtype`` (bfloat16 unless given) is the dtype the serving
+    batch is built in; the card and the model are stubbed, and the run
+    stops at ``build_decode_fn``."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def build_decode_fn(*args, **kw):
+        seen.update(kw)
+        raise Built
+
+    monkeypatch.setattr(profile_slice.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(profile_slice.subprocess, "run",
+                        lambda *a, **kw: SimpleNamespace(stdout="NVIDIA H100, 700.00 W\n"))
+    monkeypatch.setattr(profile_slice, "build_model", lambda *a, **kw: None)
+    monkeypatch.setattr(profile_slice, "build_decode_fn", build_decode_fn)
+    with pytest.raises(Built):
+        profile_slice.main(argv)
+    assert seen["compute_dtype"] is want and seen["fold_bn"]
