@@ -18,16 +18,21 @@ Phases, each failing loudly (non-zero exit, no final line):
    4x the kernel's error), with two f32 launches bit-identical; and at head
    dims 8-256 (12, 24 and 100 among them; every multiple of 16) on ragged
    lengths, each case naming the variant it runs;
-4. train kernels: the bf16 backward's ptxas report (no spills) and its
-   SASS (dQ by 4-float vector reductions only, none without dQ); at the
-   training shapes, the dropout keep-mask probe bit for bit, the flash
-   forward with dropout 0.1 (max |err| / max |ref| within 1e-4 f32 / 1e-2
-   bf16, a bound that the plain version without the mask or with another
-   seed's mask must exceed), and the fused flash backward (rates 0 and 0.1)
-   against autograd through the plain version, in float32 and bfloat16,
-   with times beside ``F.scaled_dot_product_attention``'s; the f32 forward
-   with dropout at head dims 8-256 on ragged lengths, with logical tiles
-   that are multiples of its warp tiles and tiles that are not; the bf16
+4. train kernels: the bf16 (Hopper) and f32 (3xTF32) backward kernels'
+   ptxas reports (no spills) and SASS (dQ by 4-float vector reductions
+   only, none without dQ); at the training shapes, the dropout keep-mask
+   probe bit for bit, the flash forward with dropout 0.1 (max |err| / max
+   |ref| within 1e-4 f32 / 1e-2 bf16, a bound that the plain version without
+   the mask or with another seed's mask must exceed), and the fused flash
+   backward (rates 0 and 0.1) against autograd through the plain version,
+   in float32 and bfloat16, with times beside
+   ``F.scaled_dot_product_attention``'s; in float32 also the plain
+   gradients with one-pass TF32 products (beyond the bound, or 4x the
+   kernel's error) and two launches' dK and dV bit-identical; the f32
+   forward with dropout at head dims 8-256 on ragged lengths, with logical
+   tiles that are multiples of its warp tiles and tiles that are not; the
+   f32 backward there at every multiple of 8 up to 256 and at 12 and 100,
+   each case naming its variant and whether it hoists the mask; the bf16
    forward and backward at every head dim 16-256 that is a multiple of 16,
    and with logical dropout tiles that are not multiples of their own, on
    ragged lengths (the backward also at head dims 12, 24 and 100); two
@@ -51,7 +56,9 @@ Phases, each failing loudly (non-zero exit, no final line):
    (``default_config()``: 8 micro-steps of 4 windows, mixed precision, fused
    AdamW); finite losses, weights still at step 0 (learning rate 0) and
    moved at step 1, and 5 flash forward and 5 flash backward launches per
-   micro-step;
+   micro-step; then the same in float32 (``training.mixed_precision``
+   off, the reference's numerics, whose backward runs the f32 fused
+   kernel);
 9. train card vs CPU: a small float32 configuration's loss and gradients
    (eval-mode forward, dropout off, so the split backward) on the card and
    on the CPU;
@@ -63,10 +70,11 @@ Phases, each failing loudly (non-zero exit, no final line):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
-training path and the profile-train path (and, for the flash forward, the
-variants its checks ran).  ``dropout_mask`` is a check-only probe: the mask it writes is
-the ``__device__`` function every flash launch with dropout evaluates, so
-its own launch count is 0 on both paths.  Imports nothing of JAX.
+bf16 and f32 training paths and the profile-train path (and, for the flash
+forward and the fused backward, the variants their checks ran).
+``dropout_mask`` is a check-only probe: the mask it writes is the
+``__device__`` function every flash launch with dropout evaluates, so its
+own launch count is 0 on every path.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -160,6 +168,16 @@ def forward_variant(dtype: str, d: int) -> str:
     if dtype == "bfloat16" and d % 16 == 0:
         return "flash_fwd_wgmma_kernel"  # Hopper: TMA and wgmma
     return "flash_fwd_kernel"  # CUDA cores
+
+
+def backward_variant(dtype: str, d: int) -> str:
+    """The kernel ``ist_flash_bwd`` runs for 16-byte aligned tensors of
+    ``dtype`` at head dim ``d`` (``csrc/flash_bwd.cu``'s dispatch)."""
+    if dtype == "float32" and d % 8 == 0:
+        return "flash_bwd_tf32_kernel"  # tensor cores, 3xTF32 mma.sync
+    if dtype == "bfloat16" and d % 16 == 0:
+        return "flash_bwd_wgmma_kernel"  # Hopper: TMA and wgmma
+    return "flash_bwd_kernel"  # CUDA cores
 
 
 def ptxas_no_spills(fragment: str, tag: str) -> None:
@@ -378,10 +396,12 @@ def phase_train_kernels():
     (micro-batch 4 x 4 regions: (96, 1655, 128) self-attention and
     (48, 1655, 256) cross-scale attention): the keep-mask probe bit for bit,
     the forward with dropout 0.1, and the fused backward at rates 0 and 0.1
-    against autograd through the plain version; then the bf16 backward at
-    every head dim it takes and with logical tiles that are not multiples
-    of its own, and the bf16 dK/dV kernel's bits over two launches.  Before
-    them, the bf16 backward's build: no spills, dQ by vector reductions.
+    against autograd through the plain version (in f32 also apart from the
+    one-pass TF32 twin, dK and dV bit-identical over two launches); then the
+    f32 and bf16 backward at every head dim they take and with logical tiles
+    that are not multiples of their own, and the bf16 dK/dV kernel's bits
+    over two launches.  Before them, the bf16 and f32 backward kernels'
+    build: no spills, dQ by vector reductions.
     Times: kernel, plain, and ``F.scaled_dot_product_attention`` with the
     same dropout rate (a yardstick only; the port never calls it)."""
     import numpy as np
@@ -409,12 +429,19 @@ def phase_train_kernels():
     rate, seed, S = 0.1, 1234, 1655
     checks = {"dropout_mask": [], "flash_fwd": [], "flash_bwd": []}
 
-    # the bf16 backward's Hopper kernel as ptxas built it: no spills
-    ptxas_no_spills("flash_bwd_wgmma_kernel", "train-kernels")
-    # and as the card runs it: dQ (kDQ, the last template flag) only by
-    # 4-float vector reductions, the dK/dV-only kernel without any
-    for entry, ops in sorted(sass_reductions("flash_bwd_wgmma_kernel").items()):
-        dq = re.search(r"wgmma_kernelILi\d+ELb[01]ELb([01])E", entry).group(1) == "1"
+    # the bf16 backward's Hopper kernel and the f32 one on the tensor cores
+    # (3xTF32; with dQ the fused backward, without it the split dK/dV) as
+    # ptxas built them: no spills
+    for fragment in ("flash_bwd_wgmma_kernel", "flash_bwd_tf32_kernel"):
+        ptxas_no_spills(fragment, "train-kernels")
+    # and as the card runs them: dQ (kDQ, the last template flag of the bf16
+    # kernel, the second last of the f32 one) only by 4-float vector
+    # reductions, the dK/dV-only kernels without any
+    reductions = sorted(sass_reductions("flash_bwd_wgmma_kernel").items())
+    reductions += sorted(sass_reductions("flash_bwd_tf32_kernel").items())
+    for entry, ops in reductions:
+        flags = re.search(r"_kernelI(?:Li\d+E)+Lb([01])ELb([01])E", entry)
+        dq = flags.group(1 if "tf32" in entry else 2) == "1"
         log(f"[train-kernels] sass {entry}: global reductions {ops}")
         vector_only = bool(ops) and all("F32x4" in op for op in ops)
         if (dq and not vector_only) or (not dq and ops):
@@ -533,7 +560,35 @@ def phase_train_kernels():
                 want = torch.autograd.grad(ref, (qg, kg, vg), dout, retain_graph=True)
                 errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
                 rel = [e / b.float().abs().max().item() for e, b in zip(errs, want)]
-                apart = None
+                apart, extra = None, {}
+                if dtype == torch.float32:
+                    # the kernel runs 3xTF32: the twin with every product in
+                    # one TF32 pass must lie beyond the bound or, where it
+                    # does not, beyond 4x the kernel's own error; dK and dV
+                    # are each block's own rows, so two launches give the
+                    # same bits (dQ's vector reductions come in any order)
+                    again = fused()
+                    same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+                    del again
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        one_pass = torch.autograd.grad(
+                            flash_attention_reference(qg, kg, vg, **kw)[0], (qg, kg, vg), dout)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
+                    tf32 = [((a - b).abs().max() / b.abs().max()).item()
+                            for a, b in zip(one_pass, want)]
+                    del one_pass
+                    extra = dict(rel_err_tf32_twin=tf32, deterministic_dk_dv=same)
+                    log(f"[train-kernels] flash_bwd ({bh}, {S}, {d}) f32 dropout {r}: the 1xTF32 "
+                        "twin dq dk dv " + " ".join(f"{x:.2e}" for x in tf32) + " (must exceed "
+                        f"{bwd_bound:.0e} or 4x the kernel's error); two launches' dK and dV "
+                        f"{'bit-identical' if same else 'DIFFER'}")
+                    if not all(x > bwd_bound or x > 4 * e for x, e in zip(tf32, rel)):
+                        raise AssertionError(f"flash_bwd f32 check cannot tell 1xTF32 products: "
+                                             f"{tf32} against {rel}")
+                    if not same:
+                        raise AssertionError("flash_bwd f32: two launches gave different dK/dV")
                 if r == 0.0:
                     dropfree = want
                 else:
@@ -552,11 +607,13 @@ def phase_train_kernels():
                 # reads q, k, v, dO, lse, delta; writes dQ, dK, dV
                 least, by = least_time(2.5 * flops, 7 * io + 8 * bh * S, name)
                 checks["flash_bwd"].append(dict(
-                    shape=[bh, S, d], dtype=name, dropout=r, max_abs_err=max(errs),
-                    rel_err_dq_dk_dv=rel, bound=bwd_bound, rel_err_vs_no_mask=apart, ms=ms,
-                    plain_ms=plain, library_ms=lib, bound_ms=least, bound_by=by,
+                    shape=[bh, S, d], dtype=name, variant=backward_variant(name, d), dropout=r,
+                    max_abs_err=max(errs), rel_err_dq_dk_dv=rel, bound=bwd_bound,
+                    rel_err_vs_no_mask=apart, **extra, ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=least, bound_by=by,
                 ))
-                log(f"[train-kernels] flash_bwd ({bh}, {S}, {d}) {name} dropout {r}: "
+                log(f"[train-kernels] flash_bwd ({bh}, {S}, {d}) {name} "
+                    f"[{backward_variant(name, d)}] dropout {r}: "
                     f"max|err|/max|ref| dq {rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e} "
                     f"(bound {bwd_bound:.0e})"
                     + ("" if apart is None else ", against the rate-0 gradients " + " ".join(
@@ -623,6 +680,43 @@ def phase_train_kernels():
     log("[train-kernels] flash_bwd (6, 200 x 333, d) dropout 0.1 max|err|/max|ref| by "
         "(d, dtype): " + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
 
+    def rel_err(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    # the f32 backward on ragged lengths at every multiple of 8 up to 256 (the
+    # 3xTF32 kernel) and at 12 and 100 (the CUDA-core one), with logical tiles
+    # 128 x 128, on which the 3xTF32 kernel hoists the mask's hash input to
+    # each warp pair's 16-key x 32-query slice, and 96 x 40, on which it hashes
+    # per element; the gradients within 1e-4 (max |err| / max |ref|) of
+    # autograd through the plain version and farther than that from its rate-0
+    # gradients (inputs from their own generator, so the later checks keep
+    # theirs)
+    f32_bwd, bwd_rng = {}, np.random.default_rng(12)
+    for d in sorted({*range(8, 257, 8), 12, 100}):
+        for bq, bk in ((128, 128), (96, 40)):
+            q = torch.from_numpy(bwd_rng.normal(size=(2, 3, 200, d)).astype(np.float32) * 0.3)
+            kv = torch.from_numpy(bwd_rng.normal(size=(2, 2, 3, 333, d)).astype(np.float32) * 0.3)
+            dout = torch.from_numpy(bwd_rng.normal(size=(2, 3, 200, d)).astype(np.float32))
+            q, k, v = (t.to(dev).requires_grad_() for t in (q, kv[0], kv[1]))
+            dout = dout.to(dev)
+            kw = dict(dropout_rate=rate, dropout_seed=seed, block_q=bq, block_k=bk)
+            got = torch.autograd.grad(flash_attention(q, k, v, **kw)[0], (q, k, v), dout)
+            want = torch.autograd.grad(flash_attention_reference(q, k, v, **kw)[0], (q, k, v),
+                                       dout)
+            rate0 = torch.autograd.grad(flash_attention_reference(q, k, v)[0], (q, k, v), dout)
+            variant = backward_variant("float32", d).removeprefix("flash_bwd_")
+            mask = ("per element" if variant != "tf32_kernel" or bq % 32 or bk % 16
+                    else "hoisted")
+            case = (d, bq, bk, variant, mask)
+            f32_bwd[case] = (max(rel_err(a, b) for a, b in zip(got, want)),
+                             min(rel_err(a, b) for a, b in zip(got, rate0)))
+            if not f32_bwd[case][0] <= 1e-4 < f32_bwd[case][1]:
+                raise AssertionError(f"flash_bwd f32 {case}: {f32_bwd[case]} from its twin and "
+                                     "from rate 0 (bound 1e-4)")
+    log("[train-kernels] flash_bwd f32 (6, 200 x 333, d) dropout 0.1, max|err|/max|ref| "
+        "(against the rate-0 gradients, must exceed 1e-4) by (d, block_q, block_k, variant, "
+        "mask): " + ", ".join(f"{c}: {a:.1e} ({b:.2f})" for c, (a, b) in f32_bwd.items()))
+
     # the Hopper kernels (forward and backward) at every head dim they take
     # (multiples of 16 up to 256) on ragged lengths, with logical tiles that
     # are multiples of their tiles (128 x 128: the mask's hash input hoisted
@@ -631,9 +725,6 @@ def phase_train_kernels():
     # |ref|) of the plain version in float32 on the same input values, the
     # gradients within 3e-2 of autograd through the plain version, and each
     # farther than its bound from the plain version's rate-0 out or gradients
-    def rel_err(a, b):
-        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-
     cases = [(d, 128, 128) for d in range(16, 257, 16)] + [(d, 96, 160) for d in (64, 128, 256)]
     worst, nearest, fwd = {}, {}, {}
     for d, bq, bk in cases:
@@ -728,7 +819,7 @@ def phase_split_kernels():
     checks = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
 
     # the f32 3xTF32 kernels as ptxas built them: no spills
-    for fragment in ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"):
+    for fragment in ("flash_bwd_dq_tf32_kernel", "flash_bwd_tf32_kernel"):
         ptxas_no_spills(fragment, "split-kernels")
     bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -1024,13 +1115,15 @@ def phase_serving(decode_fn, n_timepoints: int):
     return stats
 
 
-def phase_train(smi: str):
+def phase_train(smi: str, mixed_precision: bool = True):
     """Full-width training: ``default_config()`` (mixed precision, bf16
     accumulation carry, fused AdamW with bf16 first moment, composite loss),
     random weights from seed 0, 3 optimizer steps of ``make_train_step``
     over synthetic windows (8 micro-steps of 4 windows, T = 1651, labels of
     16 tokens).  The default warmup starts at learning rate 0, so step 0
-    must leave the weights as they were and step 1 must move them."""
+    must leave the weights as they were and step 1 must move them.  With
+    ``mixed_precision=False`` the same in float32 (the reference's own
+    numerics), whose attention backward runs the f32 fused kernel."""
     import numpy as np
     import torch
 
@@ -1039,7 +1132,7 @@ def phase_train(smi: str):
         synthetic_train_batch,
         synthetic_vocab,
     )
-    from imagined_speech_translation_tpu_torch.config import default_config
+    from imagined_speech_translation_tpu_torch.config import default_config, replace_nested
     from imagined_speech_translation_tpu_torch.data import ChineseCharTokenizer
     from imagined_speech_translation_tpu_torch.training import (
         AdaptiveLossScheduler,
@@ -1050,9 +1143,10 @@ def phase_train(smi: str):
         make_train_step,
     )
 
-    cfg = default_config()
+    cfg = replace_nested(default_config(), "training.mixed_precision", mixed_precision)
     tc = cfg.training
     accum, micro, n_steps = tc.grad_accum_steps, tc.batch_size, 3
+    tag = "train" if mixed_precision else "train-f32"
     tok = ChineseCharTokenizer(synthetic_vocab(cfg.model.bart.vocab_size))
     bow = get_top_k_vocab_indices(tok, tc.loss.bow_vocab_size)
     t0 = time.perf_counter()
@@ -1062,7 +1156,7 @@ def phase_train(smi: str):
     opt = FusedAdamW(names, tc.optimizer, total_steps=n_steps)
     state = create_train_state(module, opt, AdaptiveLossScheduler(tc.loss).initial_weights())
     step_fn = make_train_step(module, opt, cfg, bow)
-    log(f"[train] model + loss heads: {n_params / 1e6:.1f}M params, random from seed 0, "
+    log(f"[{tag}] model + loss heads: {n_params / 1e6:.1f}M params, random from seed 0, "
         f"built in {time.perf_counter() - t0:.1f} s; mixed precision {tc.mixed_precision}, "
         f"carry {tc.grad_accum_dtype}, mu {tc.optimizer.mu_dtype}, accum {accum} x {micro}")
     probe = dict(module.named_parameters())["model.brain_encoder.region_encoders.attn0.q_proj.weight"]
@@ -1080,7 +1174,7 @@ def phase_train(smi: str):
         times.append(time.perf_counter() - t0)
         m = {k: float(v) for k, v in metrics.items()}
         moved = (probe.detach() - before).abs().max().item()
-        log(f"[train] step {i}: loss {m['loss']:.4f} (ce {m['loss_ce']:.4f}, align "
+        log(f"[{tag}] step {i}: loss {m['loss']:.4f} (ce {m['loss_ce']:.4f}, align "
             f"{m['loss_align']:.4f}, bow {m['loss_bow']:.4f}, div {m['loss_div']:.4f}, var "
             f"{m['loss_var']:.4f}), grad norm {m['grad_norm']:.4f}, max |dW| of attn0.q_proj "
             f"{moved:.3e}, {times[-1]:.3f} s")
@@ -1091,7 +1185,7 @@ def phase_train(smi: str):
                                  f"weights by {moved}")
     launches = _kernels.launch_counts()
     want = 5 * accum * n_steps  # 3 self + 2 cross-scale attentions per micro-step
-    log(f"[train] kernel launches in {n_steps} steps: {launches} (flash fwd/bwd want {want}, "
+    log(f"[{tag}] kernel launches in {n_steps} steps: {launches} (flash fwd/bwd want {want}, "
         "split dQ and dK/dV 0: every training attention has dropout 0.1)")
     if launches["flash_fwd"] != want or launches["flash_bwd"] != want or (
         launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]
@@ -1100,9 +1194,9 @@ def phase_train(smi: str):
                              "fused backward each and no split backward")
     sec = float(np.mean(times[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[train] {sec:.3f} s/step (mean of steps 1-{n_steps - 1}; all "
-        f"{[round(t, 3) for t in times]}), {accum * micro / sec:.2f} windows/s, peak memory "
-        f"{peak:.1f} GiB, on {smi}")
+    log(f"[{tag}] {'bf16 mixed precision' if mixed_precision else 'float32'}: {sec:.3f} s/step "
+        f"(mean of steps 1-{n_steps - 1}; all {[round(t, 3) for t in times]}), "
+        f"{accum * micro / sec:.2f} windows/s, peak memory {peak:.1f} GiB, on {smi}")
     del state, step_fn, module, opt
     torch.cuda.empty_cache()
     return launches
@@ -1294,11 +1388,13 @@ def main() -> int:
     del decode_fn, ctx
     torch.cuda.empty_cache()
     train_launches = timed(phase_train, smi)
+    train_f32_launches = timed(phase_train, smi, False)
     timed(phase_train_card_vs_cpu)
     profile_launches = timed(phase_profile_train, smi)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(summary(checks, {"serving": serve_launches, "training": train_launches,
+                                    "training_f32": train_f32_launches,
                                     "profile_train": profile_launches})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

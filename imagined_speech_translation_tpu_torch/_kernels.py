@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("sosfilt.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_bwd_split.cu", "dropout_mask.cu")
-HEADERS = ("dropout_mask.cuh", "flash_bwd_kv.cuh", "sm90.cuh", "tf32.cuh")
+HEADERS = ("dropout_mask.cuh", "flash_bwd_kv.cuh", "flash_bwd_tf32.cuh", "sm90.cuh",
+           "tf32.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

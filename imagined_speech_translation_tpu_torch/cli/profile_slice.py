@@ -13,10 +13,13 @@ through ``build_decode_fn`` and through the encoder alone (median of 5
 after one warm-up; host clock around synchronized calls).
 
 ``--what train`` builds the default training step as ``chip_smoke.py`` runs
-it: ``default_config()`` with its composite loss, mixed precision and fused
-AdamW, random weights from seed 0, one synthetic window batch of 8
-micro-steps x 4 windows at T = 1651 (labels of 16 tokens).  It prints
-seconds per optimizer step (median of 3 after one warm-up) and windows/s.
+it: ``default_config()`` with its composite loss and fused AdamW, random
+weights from seed 0, one synthetic window batch of 8 micro-steps x 4
+windows at T = 1651 (labels of 16 tokens); mixed precision (bf16) by
+default, or with ``--compute-dtype float32`` the step with
+``training.mixed_precision=False``, the reference's own numerics.  It
+prints seconds per optimizer step (median of 3 after one warm-up),
+windows/s and peak device memory.
 
 Then one batch (or step) runs under ``torch.profiler``: traced span (first
 host or device event to last), kernel launches, device busy time (kernel and
@@ -142,8 +145,8 @@ def print_profile(fn, trace: Path, unprofiled_s: float) -> None:
         print(f"  {ms:9.3f} ms  n={count:5d}  {name[:90]}")
 
 
-def profile_train(dev: torch.device, trace: Path) -> None:
-    cfg = default_config()
+def profile_train(dev: torch.device, trace: Path, mixed_precision: bool = True) -> None:
+    cfg = replace_nested(default_config(), "training.mixed_precision", mixed_precision)
     tc = cfg.training
     tok = ChineseCharTokenizer(synthetic_vocab(cfg.model.bart.vocab_size))
     bow = get_top_k_vocab_indices(tok, tc.loss.bow_vocab_size)
@@ -154,11 +157,14 @@ def profile_train(dev: torch.device, trace: Path) -> None:
     batch = {k: v.to(dev) for k, v in synthetic_train_batch(
         cfg, tc.grad_accum_steps, tc.batch_size, cfg.data.max_length, 100).items()}
     step = lambda: step_fn(state, batch, torch.Generator().manual_seed(state.step))  # noqa: E731
+    torch.cuda.reset_peak_memory_stats(dev)
     step()
     step_s, step_all = median_seconds(step, n=3)
     windows = tc.grad_accum_steps * tc.batch_size
-    print(f"train step {step_s:.4f} s (median of 3: {[round(t, 4) for t in step_all]}), "
-          f"{windows / step_s:.2f} windows/s", flush=True)
+    print(f"train step ({'bfloat16 mixed precision' if mixed_precision else 'float32'}) "
+          f"{step_s:.4f} s (median of 3: {[round(t, 4) for t in step_all]}), "
+          f"{windows / step_s:.2f} windows/s, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB", flush=True)
     print_profile(step, trace, step_s)
 
 
@@ -178,7 +184,8 @@ def main(argv=None) -> int:
     ap.add_argument("--what", choices=("serve", "train"), default="serve",
                     help="a serving batch or a training step")
     ap.add_argument("--compute-dtype", choices=("bfloat16", "float32"), default="bfloat16",
-                    help="the serving batch's compute dtype (--what serve)")
+                    help="the compute dtype of the serving batch (--what serve) or of the "
+                    "training step (--what train: float32 turns mixed precision off)")
     ap.add_argument("--trace", default=None,
                     help="where to write the Chrome trace (build/profile/<what>_trace.json)")
     args = ap.parse_args(argv)
@@ -191,7 +198,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     if args.what == "train":
-        profile_train(torch.device("cuda"), trace)
+        profile_train(torch.device("cuda"), trace,
+                      mixed_precision=args.compute_dtype == "bfloat16")
         print(smi, flush=True)
         return 0
 

@@ -1,20 +1,21 @@
 """Times configurations of the float32 3xTF32 kernels on one card: the
-split backward's and the bare rate of ``mma.sync`` in TF32, or the flash
-forward's.
+split backward's and the bare rate of ``mma.sync`` in TF32, the flash
+forward's, or the fused backward's.
 
     python -m imagined_speech_translation_tpu_torch.cli.tune_split_bwd \
-        [--program split_bwd|fwd_tf32]
+        [--program split_bwd|fwd_tf32|bwd_tf32]
 
 Builds ``csrc/tune/<program>.cu`` (which includes the kernel source,
-``csrc/flash_bwd_split.cu`` or ``csrc/flash_fwd.cu``) as a program under
-``build/tune/`` with the kernel library's ``nvcc`` flags, prints the card's
-name and power limit, each 3xTF32 kernel's registers and spills as ptxas
-reports them, then what the program prints: for each configuration, at
-(192, 1655, 128) and (96, 1655, 256) for the split backward, at the serving
-shapes (384, 1655, 128) and (192, 1655, 256) and the training shapes with
-dropout 0.1 for the forward, the mean milliseconds over 10 launches and the
-error against the CUDA-core kernels.  Needs ``nvcc`` and a card; the port
-never calls it.
+``csrc/flash_bwd_split.cu``, ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd.cu``)
+as a program under ``build/tune/`` with the kernel library's ``nvcc`` flags,
+prints the card's name and power limit, each 3xTF32 kernel's registers and
+spills as ptxas reports them, then what the program prints: for each
+configuration, at (192, 1655, 128) and (96, 1655, 256) for the split
+backward, at the serving shapes (384, 1655, 128) and (192, 1655, 256) and
+the training shapes with dropout 0.1 for the forward, at the training shapes
+(96, 1655, 128) and (48, 1655, 256) with dropout 0.1 for the fused backward,
+the mean milliseconds over 10 launches and the error against the CUDA-core
+kernels.  Needs ``nvcc`` and a card; the port never calls it.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ def ptxas_lines(log: str, fragment: str = "tf32_kernel") -> list[str]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--program", choices=("split_bwd", "fwd_tf32"), default="split_bwd")
+    ap.add_argument("--program", choices=("split_bwd", "fwd_tf32", "bwd_tf32"),
+                    default="split_bwd")
     args = ap.parse_args(argv)
     src = _kernels.CSRC / "tune" / f"{args.program}.cu"
     exe = _kernels.BUILD_DIR.parent / "tune" / args.program

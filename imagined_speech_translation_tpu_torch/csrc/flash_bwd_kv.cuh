@@ -64,15 +64,14 @@
 //   Shared memory: 162.0 KB (d = 128) and 218.0 KB (d = 256) of the 227
 //   KB a block may have.  Blocks start their query loops at different
 //   tiles so their dQ reductions spread over the rows.
-// * float32, or any other d <= 256: CUDA cores in f32 (one TF32 pass on the
-//   tensor cores would miss f32 accuracy).  256 threads as 16 x 16; K, V, Q,
-//   dO, P~ and dS tiles in shared memory as float32 with rows padded by one
-//   float; each thread keeps a slice of dK and dV in registers.  Keys and
-//   queries per tile: 64 at d <= 128, 32 at d = 256 (about 166 and 140 KB).
-//   It runs the fused backward in float32 (rate > 0, on no default path) and
-//   the split dK/dV kernel where the 3xTF32 tensor-core kernel of
-//   flash_bwd_split.cu does not apply (d % 8 != 0, tensors not 16-byte
-//   aligned); that kernel takes float32 split dK/dV otherwise.
+// * any other case, float32 or bfloat16: CUDA cores in f32.  256 threads as
+//   16 x 16; K, V, Q, dO, P~ and dS tiles in shared memory as float32 with
+//   rows padded by one float; each thread keeps a slice of dK and dV in
+//   registers.  Keys and queries per tile: 64 at d <= 128, 32 at d = 256
+//   (about 166 and 140 KB).  In float32 it runs only where the 3xTF32
+//   tensor-core kernel of flash_bwd_tf32.cuh, which takes the fused and the
+//   split dK/dV backward otherwise, does not apply: d % 8 != 0 or tensors
+//   not 16-byte aligned.
 
 #pragma once
 

@@ -45,7 +45,7 @@
 //
 // * float32 with d % 8 == 0 and 16-byte aligned tensors (the eval-mode
 //   gradient's d = 128 and 256, cli/profile.py --tiny's 24): the tensor cores
-//   in 3xTF32, flash_bwd_dq_tf32_kernel and flash_bwd_dkv_tf32_kernel.  What
+//   in 3xTF32, flash_bwd_dq_tf32_kernel and flash_bwd_tf32_kernel.  What
 //   held the CUDA-core kernels before them back (23.3 + 27.5 ms at d = 128,
 //   61.7 + 46.6 ms at d = 256, on an H100 at 700 W): f32 FMAs peak at 67
 //   TFLOP/s; each thread of a 16 x 16 layout issued 16 shared loads per 32
@@ -98,14 +98,15 @@
 //     two stages of 32-key tiles, 202.8 KB of shared memory at d = 128 (one
 //     64-key tile at d <= 64); d > 128: 8 warps (64 queries), one 32-key
 //     tile, 195.0 KB at d = 256.
-//   - dK/dV kernel: S^T = K Q^T and dP^T = V dO^T with 16 keys a warp as M,
-//     so P^T and dS^T are the A operands of dV += P^T dO and dK += dS^T Q.
-//     A block holds 64 keys; warps w and w + 4 share 16 of them: w computes
-//     S^T, P^T and dV and hands P^T over through shared memory (a named
-//     barrier of the pair), w + 4 computes dP^T, dS^T and dK.  One sum a
-//     warp stays in registers, so at d <= 128 two blocks of 8 warps fit an
-//     SM (107.3 KB each at d = 128); at d = 256 one (203.3 KB).  32-query
-//     tiles.
+//   - dK/dV kernel: flash_bwd_tf32_kernel of flash_bwd_tf32.cuh without
+//     its dQ and its mask, the template the fused f32 backward shares.
+//     S^T = K Q^T and dP^T = V dO^T with 16 keys a warp as M, so P^T and
+//     dS^T are the A operands of dV += P^T dO and dK += dS^T Q.  A block
+//     holds 64 keys; warps w and w + 4 share 16 of them: w computes S^T, P^T
+//     and dV and hands P^T over through shared memory (a named barrier of
+//     the pair), w + 4 computes dP^T, dS^T and dK.  One sum a warp stays in
+//     registers, so at d <= 128 two blocks of 8 warps fit an SM (107.3 KB
+//     each at d = 128); at d = 256 one (203.3 KB).  32-query tiles.
 // * bfloat16 with d % 16 == 0 and 16-byte aligned tensors: dQ on the tensor
 //   cores (mma.sync m16n8k16, bf16 in, f32 accumulate); four warps of 16
 //   query rows.  Per key tile each warp computes S and dP in registers,
@@ -122,6 +123,7 @@
 //   and 136 KB).  dK/dV: the CUDA-core key-tile backward of flash_bwd_kv.cuh.
 
 #include "flash_bwd_kv.cuh"
+#include "flash_bwd_tf32.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -625,142 +627,6 @@ int launch_dq_tf32(const void* q, const void* k, const void* v, const void* dout
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), s_q, s_kv, d, qscale,
       scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The dK/dV kernel's shape: 8 warps, 64 keys; warps w and w + 4 share keys
-// 16w .. 16w + 15, w computing S^T, P^T and dV, w + 4 dP^T, dS^T and dK.
-// BQ queries per streamed tile.  Shared (floats): K, V (64 x ld each), one
-// stage of Q, dO (BQ x ld each), lse, delta (BQ each), then the P^T
-// hand-over (64 x BQ).
-template <int BQ>
-struct DkvTf32 {
-  static constexpr int NT = 256;
-  static constexpr int BKK = 64;
-  static size_t smem_bytes(int d) {
-    return sizeof(float) * (static_cast<size_t>(2 * BKK + 2 * BQ) * (d + 4) + 2 * BQ + BKK * BQ);
-  }
-};
-
-template <int DMAX, int BQ, int MINB>
-__global__ void __launch_bounds__(256, MINB)
-    flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv, int s_q, int s_kv,
-                              int d, float qscale, float scale) {
-  using L = DkvTf32<BQ>;
-  constexpr int NT = L::NT;
-  constexpr int BKK = L::BKK;
-  constexpr int NS = BQ / 8;    // score n-tiles of 8 queries
-  constexpr int NO = DMAX / 8;  // output n-tiles of 8 dims
-  extern __shared__ __align__(16) float smem_f[];
-  const int ld = d + 4;
-  float* ks = smem_f;
-  float* vs = ks + BKK * ld;
-  float* qs = vs + BKK * ld;
-  float* dos = qs + BQ * ld;
-  float* lse_s = dos + BQ * ld;
-  float* delta_s = lse_s + BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int grp = warp % 4;       // this warp's 16 keys: 16 grp ..
-  const bool dv_warp = warp < 4;  // S^T, P^T, dV; else dP^T, dS^T, dK
-  float* pbuf = delta_s + BQ + grp * 16 * BQ;  // this pair's P^T
-  const int k0 = blockIdx.x * BKK;
-  const int bh = blockIdx.y;
-  const float* qb = q + static_cast<size_t>(bh) * s_q * d;
-  const float* db = dout + static_cast<size_t>(bh) * s_q * d;
-  const float* lb = lse + static_cast<size_t>(bh) * s_q;
-  const float* deb = delta + static_cast<size_t>(bh) * s_q;
-
-  auto load_tile = [&](int q0) {
-    load_rows<BQ, NT>(qs, qb, q0, s_q, d, ld);
-    load_rows<BQ, NT>(dos, db, q0, s_q, d, ld);
-    load_vec<BQ>(lse_s, lb, q0, s_q);
-    load_vec<BQ>(delta_s, deb, q0, s_q);
-  };
-  load_rows<BKK, NT>(ks, k + static_cast<size_t>(bh) * s_kv * d, k0, s_kv, d, ld);
-  load_rows<BKK, NT>(vs, v + static_cast<size_t>(bh) * s_kv * d, k0, s_kv, d, ld);
-  load_tile(0);
-  cp_async_commit();
-
-  float acc[NO][4];  // dV or dK
-#pragma unroll
-  for (int c = 0; c < NO; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-
-  const int key_lo = k0 + 16 * grp + g;  // this thread's keys: key_lo (e = 0, 1), + 8 (2, 3)
-  for (int q0 = 0; q0 < s_q; q0 += BQ) {
-    if (q0 > 0) {
-      __syncthreads();  // every warp is done with the previous tile
-      load_tile(q0);
-      cp_async_commit();
-    }
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed
-
-    float x[NS][4];  // S^T, then P^T; or dP^T, then dS^T
-#pragma unroll
-    for (int n = 0; n < NS; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
-    if (dv_warp) {
-      scores_3xtf32<NS>(x, ks + 16 * grp * ld, qs, ld, d, lane);
-      // P^T: keys past s_kv score -1e30, queries past s_q give 0
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * n + 2 * t + (e & 1);
-          const float p = exp2f((key_lo + 8 * (e >> 1) < s_kv ? x[n][e] * qscale : kNegInf) -
-                                lse_s[col]);
-          x[n][e] = q0 + col < s_q ? p : 0.f;
-          pbuf[(4 * n + e) * 32 + lane] = x[n][e];  // to warp grp + 4, same lane
-        }
-      sm90::bar_arrive(1 + grp, 64);
-      grads_3xtf32<NS, NO>(acc, x, dos, ld, d, g, t);  // dV += P^T dO
-    } else {
-      scores_3xtf32<NS>(x, vs + 16 * grp * ld, dos, ld, d, lane);
-      sm90::bar_sync(1 + grp, 64);  // warp grp's P^T of this tile
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          x[n][e] = pbuf[(4 * n + e) * 32 + lane] * (x[n][e] - delta_s[8 * n + 2 * t + (e & 1)]);
-      grads_3xtf32<NS, NO>(acc, x, qs, ld, d, g, t);  // dK += dS^T Q
-    }
-  }
-  const size_t base = static_cast<size_t>(bh) * s_kv * d;
-  if (dv_warp)
-    store_frag_rows<NO>(dv + base, acc, k0 + 16 * grp, s_kv, d, g, t, 1.f);
-  else
-    store_frag_rows<NO>(dk + base, acc, k0 + 16 * grp, s_kv, d, g, t, scale);
-}
-
-template <int DMAX, int BQ, int MINB>
-int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
-                    const float* lse, const float* delta, void* dk, void* dv, int bh, int s_q,
-                    int s_kv, int d, float qscale, float scale, cudaStream_t stream) {
-  using L = DkvTf32<BQ>;
-  if (bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = L::smem_bytes(d);
-  auto kernel = flash_bwd_dkv_tf32_kernel<DMAX, BQ, MINB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s_kv + L::BKK - 1) / L::BKK, bh);
-  kernel<<<grid, L::NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), s_q, s_kv, d, qscale, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// float32 takes the 3xTF32 kernels where d % 8 == 0 and every tensor is
-// 16-byte aligned (cp.async copies 16 bytes), else the CUDA-core ones.
-bool tf32_fits(int d, const void* a, const void* b, const void* c, const void* e,
-               const void* f, const void* h) {
-  return d % 8 == 0 && aligned16(a) && aligned16(b) && aligned16(c) && aligned16(e) &&
-         aligned16(f) && aligned16(h);
 }
 
 int dispatch_dq_f32(const void* q, const void* k, const void* v, const void* dout,

@@ -89,3 +89,31 @@ def test_compute_dtype_reaches_build_decode_fn(monkeypatch, argv, want):
     with pytest.raises(Built):
         profile_slice.main(argv)
     assert seen["compute_dtype"] is want and seen["fold_bn"]
+
+
+@pytest.mark.parametrize("argv, mixed", [
+    (["--what", "train"], True),
+    (["--what", "train", "--compute-dtype", "bfloat16"], True),
+    (["--what", "train", "--compute-dtype", "float32"], False),
+])
+def test_compute_dtype_reaches_the_training_config(monkeypatch, argv, mixed):
+    """``--what train --compute-dtype float32`` builds the step with
+    ``training.mixed_precision=False`` (bfloat16, the default, keeps it on);
+    the card is stubbed, and the run stops where the module is built."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def build_train_module(cfg, *args, **kw):
+        seen["cfg"] = cfg
+        raise Built
+
+    monkeypatch.setattr(profile_slice.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(profile_slice.subprocess, "run",
+                        lambda *a, **kw: SimpleNamespace(stdout="NVIDIA H100, 700.00 W\n"))
+    monkeypatch.setattr(profile_slice, "build_train_module", build_train_module)
+    with pytest.raises(Built):
+        profile_slice.main(argv)
+    assert seen["cfg"].training.mixed_precision is mixed
+    assert seen["cfg"].model == profile_slice.default_config().model
