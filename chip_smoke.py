@@ -9,7 +9,13 @@ Phases, each failing loudly (non-zero exit, no final line):
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per
    source, in parallel);
 3. kernels: each kernel against its plain PyTorch twin on the card, at the
-   shapes the serving path gives it, with times; the forward's ptxas report
+   shapes the serving path gives it, with times; the IIR at B = 16 and B = 1
+   (2000 and 125 series of 1651 samples) within 2e-4 x max |x| of its
+   sequential twin, a bound that the chunked scheme with its carry dropped
+   must exceed, and on ragged shapes (fewer samples than chunks, T not a
+   multiple of its chunk, a series count not a multiple of the block's, a
+   series longer than shared memory holds), its ptxas report without
+   spills; the forward's ptxas report
    of its bf16 (Hopper) and f32 (3xTF32) kernels (no spills); the forward's
    out within max |err| / max |ref| 1e-4 f32 / 1e-2 bf16 of the twin in
    float32 on the same input values, at flat and peaky inputs, a bound that
@@ -37,9 +43,11 @@ Phases, each failing loudly (non-zero exit, no final line):
    and with logical dropout tiles that are not multiples of their own, on
    ragged lengths (the backward also at head dims 12, 24 and 100); two
    launches of the bf16 split dK/dV kernel bit-identical;
-4b. split kernels: the f32 3xTF32 kernels' ptxas report (no spills); the
-   rate-0 backward's dQ and dK/dV kernels at the eval-mode gradient's
-   shapes and at head dims 8-192 (12, 24 and 100 among them), in float32
+4b. split kernels: the f32 3xTF32 kernels' and the bf16 Hopper dQ
+   kernel's ptxas reports (no spills); the rate-0 backward's dQ and dK/dV
+   kernels at the eval-mode gradient's shapes and at head dims 8-192 (12,
+   24 and 100 among them; in bf16 every multiple of 16 up to 256, on 200 x
+   333 and 1655 x 1580 tokens), in float32
    and bfloat16, against autograd through the plain version in float32 on
    the same input values (max |err| / max |ref| within 1e-4 f32 / 2e-2
    bf16, a bound the gradients without the delta term must exceed, and in
@@ -108,6 +116,24 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, fragment: str, iters: int = 20) -> float:
+    """Mean device milliseconds per call of the kernels whose name contains
+    ``fragment``, from the profiler: for a kernel shorter than the host work
+    of the call that launches it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if fragment in e.key)
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time of {fragment}")
+    return us / iters / 1e3
 
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, HBM bandwidth,
@@ -180,6 +206,16 @@ def backward_variant(dtype: str, d: int) -> str:
     return "flash_bwd_kernel"  # CUDA cores
 
 
+def split_dq_variant(dtype: str, d: int) -> str:
+    """The kernel ``ist_flash_bwd_dq`` runs for 16-byte aligned tensors of
+    ``dtype`` at head dim ``d`` (``csrc/flash_bwd_split.cu``'s dispatch)."""
+    if dtype == "float32" and d % 8 == 0:
+        return "flash_bwd_dq_tf32_kernel"  # tensor cores, 3xTF32 mma.sync
+    if dtype == "bfloat16" and d % 16 == 0:
+        return "flash_bwd_dq_wgmma_kernel"  # Hopper: TMA and wgmma
+    return "flash_bwd_dq_kernel"  # CUDA cores
+
+
 def ptxas_no_spills(fragment: str, tag: str) -> None:
     """Log the ptxas report of each compiled kernel whose name contains
     ``fragment``; fail if there is none or one spills."""
@@ -236,6 +272,10 @@ def phase_kernels():
         sosfilt,
         sosfilt_reference,
     )
+    from imagined_speech_translation_tpu_torch.frontend.filters import (
+        chunk_length,
+        sosfilt_chunked_reference,
+    )
     from imagined_speech_translation_tpu_torch.ops import (
         flash_attention,
         flash_attention_reference,
@@ -247,24 +287,52 @@ def phase_kernels():
     rng = np.random.default_rng(0)
     checks = {"sosfilt": [], "flash_fwd": []}
 
-    # sosfilt: batch 16 x 125 channels x 1651 samples, float32
+    # sosfilt: the serving batch (16 x 125 channels x 1651 samples, float32)
+    # and a single window (B = 1: 125 series), against the sequential twin
+    # within 2e-4 x max |x|; the chunked scheme with its carry dropped (every
+    # chunk from a zero state) must lie beyond that bound.  Time: the kernel's
+    # own, from the profiler's device time (a call of the wrapper also
+    # computes the carry on the host), and a call's, by CUDA events.
     fe = SignalFrontend()
     banks = [fe.sos_bandpass, fe.sos_notch]
-    x = torch.from_numpy(rng.normal(size=(16 * 125, 1651)).astype(np.float32)).to(dev)
-    got = sosfilt(banks, x)
-    ref = sosfilt_reference(banks, x)
-    err = (got - ref).abs().max().item()
-    bound = 2e-4 * x.abs().max().item()
-    ms = cuda_ms(lambda: sosfilt(banks, x))
-    plain = cuda_ms(lambda: sosfilt_reference(banks, x), iters=2, warmup=1)
-    least, by = least_time(50 * x.numel(), 2 * 4 * x.numel(), "float32")
-    checks["sosfilt"].append(dict(shape=list(x.shape), dtype="float32", max_abs_err=err,
-                                  bound=bound, ms=ms, plain_ms=plain, library_ms=None,
-                                  bound_ms=least, bound_by=by))
-    log(f"[kernels] sosfilt {tuple(x.shape)} f32: max|err| {err:.3e} (bound {bound:.3e}) "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    if not err <= bound:
-        raise AssertionError(f"sosfilt disagrees with its plain twin: {err} > {bound}")
+    ptxas_no_spills("sosfilt_chunked_kernel", "kernels")
+    for n_series in (16 * 125, 125):
+        x = torch.from_numpy(rng.normal(size=(n_series, 1651)).astype(np.float32)).to(dev)
+        got = sosfilt(banks, x)
+        ref = sosfilt_reference(banks, x)
+        err = (got - ref).abs().max().item()
+        bound = 2e-4 * x.abs().max().item()
+        dropped = sosfilt_chunked_reference(banks, x, chunk_length(1651), carry=False)
+        err_dropped = (dropped - ref).abs().max().item()
+        ms = kernel_ms(lambda: sosfilt(banks, x), "sosfilt")
+        call = cuda_ms(lambda: sosfilt(banks, x), iters=20)
+        plain = cuda_ms(lambda: sosfilt_reference(banks, x), iters=2, warmup=1)
+        least, by = least_time(50 * x.numel(), 2 * 4 * x.numel(), "float32")
+        checks["sosfilt"].append(dict(shape=list(x.shape), dtype="float32", max_abs_err=err,
+                                      bound=bound, max_abs_err_without_carry=err_dropped,
+                                      ms=ms, call_ms=call, plain_ms=plain, library_ms=None,
+                                      bound_ms=least, bound_by=by))
+        log(f"[kernels] sosfilt {tuple(x.shape)} f32: max|err| {err:.3e} (bound {bound:.3e}), "
+            f"the twin without the carry {err_dropped:.3e} (must exceed it); kernel {ms:.4f} ms "
+            f"(a call {call:.4f} ms), plain {plain:.3f} ms, bound {least:.4f} ms ({by})")
+        if not err <= bound < err_dropped:
+            raise AssertionError(f"sosfilt disagrees with its plain twin, or the check cannot "
+                                 f"tell a dropped carry: {err}, {err_dropped}, bound {bound}")
+    # ragged: fewer samples than chunks (T = 1, 20), T not a multiple of its
+    # chunk (333: 30 x 11 + 3; 1650: 31 x 53 + 7), a series count that is not
+    # a multiple of the block's (1001), and a series longer than shared
+    # memory holds (70000 samples, read in device memory)
+    ragged = {}
+    for shape in ((5, 1), (7, 20), (9, 333), (11, 1650), (1001, 1651), (3, 70000)):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        got = sosfilt(banks, x.to(dev)).cpu()
+        err = (got - sosfilt_reference(banks, x)).abs().max().item()
+        bound = 2e-4 * x.abs().max().item()
+        ragged[shape] = err / bound
+        if not err <= bound:
+            raise AssertionError(f"sosfilt {shape}: {err} > {bound}")
+    log("[kernels] sosfilt ragged, max|err| / bound by shape: "
+        + ", ".join(f"{k}: {v:.2f}" for k, v in ragged.items()))
 
     # the forward's tensor-core kernels as ptxas built them, bf16 (Hopper)
     # and f32 (3xTF32): no spills
@@ -369,10 +437,12 @@ def phase_kernels():
     return checks
 
 
-def sass_reductions(fragment: str) -> dict[str, dict[str, int]]:
-    """Global reduction and atomic instructions (SASS opcode -> count) of each
-    function of the loaded kernel library whose name contains ``fragment``,
-    as ``cuobjdump -sass`` lists them."""
+def sass_reductions(fragment: str,
+                    opcodes: str = r"\b(?:RED|ATOM)G?\.[\w.]+") -> dict[str, dict[str, int]]:
+    """Global reduction and atomic instructions (SASS opcode -> count), or
+    those that ``opcodes`` matches, of each function of the loaded kernel
+    library whose name contains ``fragment``, as ``cuobjdump -sass`` lists
+    them."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from imagined_speech_translation_tpu_torch import _kernels
@@ -386,7 +456,7 @@ def sass_reductions(fragment: str) -> dict[str, dict[str, int]]:
             fn = m.group(1) if fragment in m.group(1) else None
             if fn:
                 out[fn] = {}
-        elif fn and (m := re.search(r"\b(?:RED|ATOM)G?\.[\w.]+", line)):
+        elif fn and (m := re.search(opcodes, line)):
             out[fn][m.group(0)] = out[fn].get(m.group(0), 0) + 1
     return out
 
@@ -782,7 +852,9 @@ def phase_split_kernels():
     """The rate-0 backward's split kernels at the eval-mode gradient's shapes
     (``cli/profile.py --what train`` at B = 8 x 4 regions: (192, 1655, 128)
     self-attention and (96, 1655, 256) cross-scale attention) and at head
-    dims 8-192 on 200 queries x 333 keys, in float32 and bfloat16.  dQ, dK
+    dims 8-192 on 200 queries x 333 keys, in float32 and bfloat16, and in
+    bfloat16 at every multiple of 16 up to 256 there and on 1655 queries x
+    1580 keys.  dQ, dK
     and dV against autograd through the plain version in float32 on the same
     input values, max |err| / max |ref| within 1e-4 f32 / 2e-2 bf16.  Inputs:
     q, k ~ N(0, 0.3^2), v ~ N(0.5, 0.3^2), dO ~ N(0, 1); with V's non-zero
@@ -791,7 +863,7 @@ def phase_split_kernels():
     float32 the plain gradients with every product in one TF32 pass must
     lie farther too: the f32 kernels run 3xTF32, and a kernel that dropped
     its small terms would land there.  Before the checks, the f32 kernels'
-    ptxas report must show no spills.  Two launches must give the
+    and the bf16 dQ kernel's ptxas reports must show no spills.  Two launches must give the
     same bits, and the fused kernel at rate 0 must agree within the bound.
     Times: dQ, dK/dV and both (kernels alone), the fused kernel at rate 0,
     the plain autograd and ``F.scaled_dot_product_attention``'s backward at
@@ -818,9 +890,18 @@ def phase_split_kernels():
     rng = np.random.default_rng(20)
     checks = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
 
-    # the f32 3xTF32 kernels as ptxas built them: no spills
-    for fragment in ("flash_bwd_dq_tf32_kernel", "flash_bwd_tf32_kernel"):
+    # the tensor-core kernels as ptxas built them, f32 (3xTF32) and the bf16
+    # dQ (Hopper): no spills; the bf16 dQ's SASS: wgmma products and TMA
+    # loads, and no reduction or atomic (each block owns its dQ rows)
+    for fragment in ("flash_bwd_dq_tf32_kernel", "flash_bwd_tf32_kernel",
+                     "flash_bwd_dq_wgmma_kernel"):
         ptxas_no_spills(fragment, "split-kernels")
+    atomics = sass_reductions("flash_bwd_dq_wgmma_kernel")
+    ops = sass_reductions("flash_bwd_dq_wgmma_kernel", r"\b(?:HGMMA|UTMALDG)\b")
+    log(f"[split-kernels] bf16 dQ SASS: {ops}, reductions and atomics {atomics}")
+    if (not ops or any(atomics.values())
+            or not all(o.get("HGMMA") and o.get("UTMALDG") for o in ops.values())):
+        raise AssertionError(f"bf16 dQ kernel: wgmma and TMA {ops}, reductions {atomics}")
     bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
     def inputs(b, h, s_q, s_kv, d, dtype):
@@ -908,7 +989,8 @@ def phase_split_kernels():
             b_dq = least_time(3 * flops, 5 * io + rows, name)
             b_dkv = least_time(4 * flops, 6 * io + rows, name)
             b_split = least_time(7 * flops, 7 * io + rows, name)
-            common = dict(shape=[bh, S, d], dtype=name, bound=bound, deterministic=same,
+            common = dict(shape=[bh, S, d], dtype=name, variant=split_dq_variant(name, d),
+                          bound=bound, deterministic=same,
                           rel_err_vs_fused_rate0=vs_fused, rel_err_tf32_twin=tf32_apart,
                           split_ms=ms_split,
                           fused_rate0_ms=ms_fused, split_bound_ms=b_split[0],
@@ -949,31 +1031,40 @@ def phase_split_kernels():
     # other head dims (96/192: reference heads (8,4,4); 12/24: cli/profile.py
     # --tiny) and ragged lengths, through flash_attention's autograd at rate
     # 0, which must launch the split kernels and not the fused one; both
-    # dtypes and both variants (bf16 with d % 16 == 0 takes the tensor cores,
-    # other d, 12, 24 and 100 among them, the CUDA cores)
+    # dtypes and every variant (bf16 with d % 16 == 0 takes the Hopper dQ
+    # kernel, f32 with d % 8 == 0 the 3xTF32 ones, other d, 12 and 100 among
+    # them, the CUDA cores).  In bf16 every multiple of 16 from 16 to 256, on
+    # 200 queries x 333 keys and at full length with s_q != s_kv (1655 x 1580:
+    # neither a multiple of 64)
     worst = {}
-    head_dims = (8, 12, 24, 40, 48, 96, 100, 192)
+    cases = [(d, dtype, 200, 333) for d in (8, 12, 24, 40, 48, 96, 100, 192) for dtype in bounds]
+    cases += [(d, torch.bfloat16, s_q, s_kv) for s_q, s_kv in ((200, 333), (1655, 1580))
+              for d in range(16, 257, 16) if (d, torch.bfloat16, s_q, s_kv) not in cases]
     _kernels.reset_launch_counts()
-    for d in head_dims:
-        for dtype, bound in bounds.items():
-            q, k, v, dout = inputs(2, 3, 200, 333, d, dtype)
-            qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
-            got = torch.autograd.grad(flash_attention(qg, kg, vg)[0], (qg, kg, vg), dout)
-            want, no_delta = plain_grads(q, k, v, dout)
-            err = max(rel(a, w) for a, w in zip(got, want))
-            apart = min(rel(n, w) for n, w in zip(no_delta, want[:2]))
-            worst[(d, str(dtype).removeprefix("torch."))] = err
-            if not err <= bound < apart:
-                raise AssertionError(f"split backward d={d} {dtype}: {err} (without delta "
-                                     f"{apart}), bound {bound}")
+    for d, dtype, s_q, s_kv in cases:
+        bound = bounds[dtype]
+        b, h = (2, 3) if s_q < 1000 else (1, 2)
+        q, k, v, dout = inputs(b, h, s_q, s_kv, d, dtype)
+        qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
+        got = torch.autograd.grad(flash_attention(qg, kg, vg)[0], (qg, kg, vg), dout)
+        want, no_delta = plain_grads(q, k, v, dout)
+        err = max(rel(a, w) for a, w in zip(got, want))
+        apart = min(rel(n, w) for n, w in zip(no_delta, want[:2]))
+        name = str(dtype).removeprefix("torch.")
+        variant = split_dq_variant(name, d).removeprefix("flash_bwd_")
+        worst[(d, name, f"{s_q}x{s_kv}", variant)] = err
+        if not err <= bound < apart:
+            raise AssertionError(f"split backward d={d} {dtype} {s_q} x {s_kv}: {err} (without "
+                                 f"delta {apart}), bound {bound}")
     launches = _kernels.launch_counts()
-    want = len(head_dims) * len(bounds)
+    want = len(cases)
     if launches["flash_bwd"] or launches["flash_bwd_dq"] != want or (
         launches["flash_bwd_dkv"] != want
     ):
         raise AssertionError(f"rate-0 autograd launched {launches}, want {want} split dQ and "
                              "dK/dV and no fused backward")
-    log("[split-kernels] (6, 200 x 333, d) rate 0 max|err|/max|ref| by (d, dtype): "
+    log("[split-kernels] ragged, rate 0: max|err|/max|ref| by (d, dtype, s_q x s_kv, "
+        "dQ variant): "
         + ", ".join(f"{k}: {v:.1e}" for k, v in worst.items()))
     return checks
 
@@ -1334,7 +1425,7 @@ def phase_profile_train(smi: str):
 # micro-batch 4 with dropout, the split backward of the eval-mode gradient
 # at B=8 in float32, the probe's bf16 tile)
 HEADLINE = {
-    "sosfilt": lambda c: True,
+    "sosfilt": lambda c: c["shape"] == [2000, 1651],
     "flash_fwd": lambda c: (c["dtype"] == "bfloat16" and c["shape"] == [384, 1655, 128]
                             and c.get("inputs") == "flat"),
     "flash_bwd": lambda c: (c["dtype"] == "bfloat16" and c["shape"] == [96, 1655, 128]

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ist_sosfilt_f32": [_P, _P, _I, _I, _P, _I, _P],
+    "ist_sosfilt_f32": [_P, _P, _I, _I, _P, _I, _P, _I, _P],
     "ist_sosfilt_max_sections": [],
     "ist_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
                       _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _P],

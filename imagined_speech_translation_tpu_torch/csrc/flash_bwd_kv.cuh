@@ -1,7 +1,6 @@
 // The key-tile attention backward, shared by the fused backward
 // (flash_bwd.cu, with dQ) and the split dK/dV kernel (flash_bwd_split.cu,
-// without), over (bh, S, d) tensors in float32 or bfloat16; and the mma.sync
-// helpers the split dQ kernel uses.
+// without), over (bh, S, d) tensors in float32 or bfloat16.
 //
 // Given the forward's inputs, its base-2 logsumexp lse and delta =
 // rowsum(dO * O) (computed by the caller in float32), each block owns one
@@ -325,34 +324,6 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
       static_cast<const T*>(dout), lse, delta, dq, static_cast<T*>(dk), static_cast<T*>(dv),
       s_q, s_kv, d, qscale, scale, drop);
   return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// mma.sync helpers (the split dQ kernel of flash_bwd_split.cu)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices; lane i addresses row i % 8 of matrix i / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
 }
 
 // ---------------------------------------------------------------------------

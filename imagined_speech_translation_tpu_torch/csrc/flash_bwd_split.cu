@@ -107,15 +107,46 @@
 //     the pair), w + 4 computes dP^T, dS^T and dK.  One sum a warp stays in
 //     registers, so at d <= 128 two blocks of 8 warps fit an SM (107.3 KB
 //     each at d = 128); at d = 256 one (203.3 KB).  32-query tiles.
-// * bfloat16 with d % 16 == 0 and 16-byte aligned tensors: dQ on the tensor
-//   cores (mma.sync m16n8k16, bf16 in, f32 accumulate); four warps of 16
-//   query rows.  Per key tile each warp computes S and dP in registers,
-//   forms dS there and repacks it straight into the A fragments of dQ += dS
-//   K (the C and A fragment layouts coincide), with K read transposed by
-//   ldmatrix.trans.  dQ stays in registers: 16 x d per warp, d / 2 floats a
-//   thread.  Keys per tile: 64 at d <= 128, 32 at d = 256 (70 and 101 KB of
-//   shared memory).  dK/dV: the key-tile backward of flash_bwd_kv.cuh
-//   without its dQ reductions, in its Hopper variant.
+// * bfloat16 with d % 16 == 0 and 16-byte aligned tensors: dQ by
+//   flash_bwd_dq_wgmma_kernel, built for Hopper from the helpers of sm90.cuh
+//   on the skeleton of flash_fwd.cu's bf16 kernel, 384 threads a block; its
+//   bound at (192, 1655, 128) and (96, 1655, 256) is 0.408 ms (6 bh s^2 d
+//   FLOPs at 989 TFLOP/s).  What held the mma.sync kernel before it back
+//   (3.43 ms at both shapes, on an H100 at 700 W, 12% of the bound): four
+//   warps of 16 queries, each K/V tile fetched once per 64 queries by
+//   synchronous loads between two __syncthreads(), so no copy overlapped a
+//   product.  What this design does:
+//   - two consumer warpgroups of 64 queries and a producer warp: 128 queries
+//     a block, so each K/V tile is fetched half as often; setmaxnreg gives
+//     the consumers 240 registers a thread and the producer 24;
+//   - the producer loads the block's Q and dO once and keeps K's and V's
+//     rings full by TMA (64-key stages of 64 x 64 tiles in the 128-byte
+//     swizzle, each signalled by an mbarrier with its byte count; zeros past
+//     s_q, s_kv and d).  The rings release apart: V's stage once dP is done,
+//     K's only after the dQ product that reads it;
+//   - per key tile S = Q K^T and dP = dO V^T by wgmma from shared memory (both
+//     K-major), P = exp2(S qscale - lse) and dS = P (dP - delta) in the
+//     registers of S (keys >= s_kv score -inf), dS packed to bf16 in place as
+//     the register A operand (the accumulator and A layouts coincide), and
+//     dQ += dS K by wgmma with K read MN-major from the same stage: the
+//     forward's P V with K in place of V.  dQ stays in registers (d / 2
+//     floats a thread) for the whole key loop; lse and delta come into
+//     registers once;
+//   - at d <= 192, S and dP of key tile j run beside the dQ product of tile
+//     j - 1 (two K stages live), so the dS step of one tile overlaps the
+//     other product; at d = 256, where dQ is 128 floats a thread, that
+//     schedule spills (372 bytes) and the products of a tile run in turn,
+//     the other warpgroup filling the gaps.  Shared memory: Q and dO 32 KB
+//     each and 3 + 3 stages of 16 KB at d = 128 (160 KB); Q and dO 64 KB
+//     each, 2 K stages and 1 V stage of 32 KB at d = 256 (224 KB).
+//   Times of the alternatives, from cli/tune_split_bwd.py --program dq_bf16
+//   on an H100 at 700 W: at (192, 1655, 128) 0.754 ms as dispatched, 0.750
+//   with 4 + 4 stages, 0.755 with 4 + 2, 0.968 with 2 + 2, 0.811 in turn,
+//   0.899 with 64 queries a block; at (96, 1655, 256) 0.743 ms as
+//   dispatched, 1.087 overlapped (spilling), 0.851 with 1 + 1 stages, 0.759
+//   with 64 queries a block and 2 + 2 stages in turn, 0.886 overlapped with
+//   3 + 2.  dK/dV: the key-tile backward of flash_bwd_kv.cuh without its dQ
+//   reductions, in its Hopper variant.
 // * any other d <= 256, in either dtype: CUDA cores in f32.  256 threads as
 //   16 x 16; Q, dO, K, V and dS tiles in shared memory as float32 with rows
 //   padded by one float; each thread keeps a slice of dQ in registers.
@@ -293,172 +324,277 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 }
 
 // ---------------------------------------------------------------------------
-// dQ, bf16 tensor-core version (d a multiple of 16, 16-byte aligned tensors)
+// dQ, bf16 Hopper version (d a multiple of 16, 16-byte aligned tensors)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // four warps
-constexpr int kMmaBQ = 64;        // query rows per block: 16 per warp
+constexpr int kDqConsumerRegs = 240;  // setmaxnreg: 2 x 128 x 240 + 128 x 24 = 65,536 - 1,024
+constexpr int kDqProducerRegs = 24;
 
-template <int BK>
-size_t dq_mma_smem_bytes(int d) {
-  return sizeof(__nv_bfloat16) * static_cast<size_t>(2 * kMmaBQ + 2 * BK) * (d + 8);
+// The layout of one block's shared memory, in bytes from a 1024-byte aligned
+// base: Q, then dO, each as [warpgroup][column block] 64 x 64 tiles; K's ring
+// of KST stages and V's ring of VST stages, each stage NCB column blocks of
+// 64 keys; then the mbarriers.
+template <int NCB, int NWG, int KST, int VST>
+struct DqTiles {
+  static constexpr int rows_bytes = NWG * NCB * kTile;  // Q (or dO) of the block
+  static constexpr int q = 0;
+  static constexpr int dout = rows_bytes;
+  static constexpr int stage_bytes = NCB * kTile;
+  static constexpr int k = 2 * rows_bytes;
+  static constexpr int v = k + KST * stage_bytes;
+  static constexpr int bars = v + VST * stage_bytes;
+  static constexpr int total = bars + (2 * (KST + VST) + 1) * 8 + 1024;  // + alignment slack
+  static_assert(total <= 232448, "shared memory of one block");
+};
+
+// dS of one warpgroup's 64 queries x 64 keys (key0 ..), in place of S: P =
+// exp2(S qscale - lse), keys >= s_kv scoring -inf, times dP - delta.  Element
+// j of the accumulator layout (sm90.cuh) is row half (j / 2) % 2, key
+// key0 + 8 (j / 4) + 2 t + j % 2.
+__device__ __forceinline__ void ds_tile(float (&s)[32], const float (&dp)[32],
+                                        const float (&lse)[2], const float (&delta)[2],
+                                        int key0, int s_kv, int t, float qscale) {
+  const bool tail = key0 + 64 > s_kv;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int h = (j / 2) % 2;
+    float x = s[j] * qscale;
+    if (tail && key0 + 8 * (j / 4) + 2 * t + j % 2 >= s_kv) x = kNegInf;
+    s[j] = exp2f(x - lse[h]) * (dp[j] - delta[h]);
+  }
 }
 
-template <int DMAX, int BK>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            __nv_bfloat16* __restrict__ dq, int s_q, int s_kv, int d,
-                            float qscale, float scale) {
-  constexpr int NS = BK / 8;    // score n-tiles of 8 keys
-  constexpr int NO = DMAX / 8;  // dQ n-tiles of 8 dims
+// Starts S = Q K^T into s and dP = dO V^T into dp for one warpgroup (64
+// queries x 64 keys), committed as one group: Q's and dO's K-major tiles at
+// qs and dos, the stage's K and V tiles at ks and vs.
+template <int NCB>
+__device__ __forceinline__ void start_scores(float (&s)[32], float (&dp)[32], uint32_t qs,
+                                             uint32_t dos, uint32_t ks, uint32_t vs) {
+  zero(s);
+  zero(dp);
+  sm90::fence_regs(s);
+  sm90::fence_regs(dp);
+  sm90::wgmma_fence();
+  gemm_kmajor<NCB>(s, qs, kTile, ks);
+  gemm_kmajor<NCB>(dp, dos, kTile, vs);
+  sm90::wgmma_commit();
+}
+
+// Holds dQ and the dS operand live until the dQ product that owns them has completed.
+template <int NCB>
+__device__ __forceinline__ void fence_dq(float (&acc)[NCB][32], uint32_t (&ds)[4][4]) {
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) sm90::fence_regs(acc[cb]);
+  fence_frags(ds);
+}
+
+// One block: NWG consumer warpgroups of 64 queries each, and a producer
+// warpgroup whose one thread loads the block's Q and dO once and keeps the K
+// and V rings full by TMA.  Per 64-key tile each consumer warpgroup computes
+// S = Q K^T and dP = dO V^T by wgmma from shared memory, forms dS in the
+// registers of S and adds dS K into dQ by wgmma with dS as the register A
+// operand and K read MN-major from the same stage.  V's stage is released
+// once dP is done, K's once the dQ product is.  kOverlap: S and dP of tile it
+// run beside the dQ product of tile it - 1 (KST >= 2), so the dS step of one
+// tile overlaps the other product; otherwise each tile's products run in turn.
+template <int NCB, int NWG, int KST, int VST, bool kOverlap>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int n_qt, int s_q, int s_kv, int d,
+                              float qscale, float scale) {
+  static_assert(!kOverlap || KST >= 2, "the overlapped schedule holds two K stages");
+  using L = DqTiles<NCB, NWG, KST, VST>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldh = d + 8;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kMmaBQ x ldh
-  __nv_bfloat16* dos = qs + kMmaBQ * ldh;                          // kMmaBQ x ldh
-  __nv_bfloat16* ks = dos + kMmaBQ * ldh;                          // BK x ldh
-  __nv_bfloat16* vs = ks + BK * ldh;                               // BK x ldh
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* k_empty = k_full + KST;
+  uint64_t* v_full = k_empty + KST;
+  uint64_t* v_empty = v_full + VST;
+  uint64_t* rows_full = v_empty + VST;
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x - bh * n_qt) * 64 * NWG;
+  const int n_kt = (s_kv + 63) / 64;
+  const int n_wg = min(NWG, (s_q - q0 + 63) / 64);  // warpgroups with rows < s_q
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int g = lane / 4;   // fragment row group
-  const int t = lane % 4;   // thread in group
-  const int lr = lane % 8;  // ldmatrix: row within the lane's 8x8 matrix
-  const int lm = lane / 8;  // ldmatrix: which of the 4 matrices
-  const int wrow = (tid / 32) * 16;
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kMmaBQ;
-  const size_t q_base = static_cast<size_t>(bh) * s_q * d;
-  const size_t kv_base = static_cast<size_t>(bh) * s_kv * d;
-  const int vecs = d / 8;  // 16-byte vectors per row
-
-  for (int idx = tid; idx < kMmaBQ * vecs; idx += kMmaThreads) {
-    const int r = idx / vecs;
-    const int c = (idx - r * vecs) * 8;
-    uint4 qv = make_uint4(0, 0, 0, 0);
-    uint4 dov = make_uint4(0, 0, 0, 0);
-    if (q0 + r < s_q) {
-      const size_t off = q_base + static_cast<size_t>(q0 + r) * d + c;
-      qv = *reinterpret_cast<const uint4*>(q + off);
-      dov = *reinterpret_cast<const uint4*>(dout + off);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KST; ++s) {
+      sm90::mbar_init(&k_full[s], 1);           // the producer's byte count
+      sm90::mbar_init(&k_empty[s], 4 * NWG);    // one arrival per consumer warp
     }
-    *reinterpret_cast<uint4*>(qs + r * ldh + c) = qv;
-    *reinterpret_cast<uint4*>(dos + r * ldh + c) = dov;
+    for (int s = 0; s < VST; ++s) {
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&v_empty[s], 4 * NWG);
+    }
+    sm90::mbar_init(rows_full, 1);
+    sm90::fence_barrier_init();
   }
-  // this thread's rows: wrow + g (fragment elements 0, 1) and + 8 (2, 3)
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer: Q and dO once; V's ring before K's, whose stages free later
+    if constexpr (NWG == 2) sm90::reg_dealloc<kDqProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      sm90::mbar_arrive_expect_tx(rows_full, 2 * n_wg * NCB * kTile);
+      for (int w = 0; w < n_wg; ++w)
+        for (int cb = 0; cb < NCB; ++cb) {
+          const int off = (w * NCB + cb) * kTile;
+          sm90::tma_load_3d(smem + L::q + off, &tm_q, rows_full, 64 * cb, q0 + 64 * w, bh);
+          sm90::tma_load_3d(smem + L::dout + off, &tm_do, rows_full, 64 * cb, q0 + 64 * w, bh);
+        }
+      for (int it = 0; it < n_kt; ++it) {
+        const int sv = it % VST;
+        sm90::mbar_wait(&v_empty[sv], ((it / VST) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&v_full[sv], L::stage_bytes);
+        for (int cb = 0; cb < NCB; ++cb)
+          sm90::tma_load_3d(smem + L::v + sv * L::stage_bytes + cb * kTile, &tm_v, &v_full[sv],
+                            64 * cb, 64 * it, bh);
+        const int sk = it % KST;
+        sm90::mbar_wait(&k_empty[sk], ((it / KST) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&k_full[sk], L::stage_bytes);
+        for (int cb = 0; cb < NCB; ++cb)
+          sm90::tma_load_3d(smem + L::k + sk * L::stage_bytes + cb * kTile, &tm_k, &k_full[sk],
+                            64 * cb, 64 * it, bh);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns queries row0 .. row0 + 63
+  if constexpr (NWG == 2) sm90::reg_alloc<kDqConsumerRegs>();
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int row0 = q0 + 64 * wg;
+  const uint32_t k_ring = sm90::smem_u32(smem + L::k);
+  const uint32_t v_ring = sm90::smem_u32(smem + L::v);
+  auto k_tiles = [&](int it) { return k_ring + (it % KST) * L::stage_bytes; };
+  auto v_tiles = [&](int it) { return v_ring + (it % VST) * L::stage_bytes; };
+  auto wait_k = [&](int it) { sm90::mbar_wait(&k_full[it % KST], (it / KST) & 1); };
+  auto wait_v = [&](int it) { sm90::mbar_wait(&v_full[it % VST], (it / VST) & 1); };
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(bar);
+  };
+  auto release_k = [&](int it) { release(&k_empty[it % KST]); };
+  auto release_v = [&](int it) { release(&v_empty[it % VST]); };
+  if (row0 >= s_q) {
+    // no query of this warpgroup exists: only pass the stages on
+    for (int it = 0; it < n_kt; ++it) {
+      wait_v(it);
+      release_v(it);
+      wait_k(it);
+      release_k(it);
+    }
+    return;
+  }
+  // this thread's rows row0 + 16 warp + g (+ 8): lse and delta once, none past s_q
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + wrow + g + 8 * h;
+    const int row = row0 + 16 * warp + g + 8 * h;
     const bool ok = row < s_q;
     lse_r[h] = ok ? lse[static_cast<size_t>(bh) * s_q + row] : 0.f;
     delta_r[h] = ok ? delta[static_cast<size_t>(bh) * s_q + row] : 0.f;
   }
+  const uint32_t qs = sm90::smem_u32(smem + L::q + wg * NCB * kTile);
+  const uint32_t dos = sm90::smem_u32(smem + L::dout + wg * NCB * kTile);
+  sm90::mbar_wait(rows_full, 0);
 
-  float acc[NO][4];
+  float acc[NCB][32];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < s_kv; k0 += BK) {
-    __syncthreads();  // the previous key tile is consumed; Q/dO are written
-    for (int idx = tid; idx < BK * vecs; idx += kMmaThreads) {
-      const int r = idx / vecs;
-      const int c = (idx - r * vecs) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0);
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < s_kv) {
-        const size_t off = kv_base + static_cast<size_t>(k0 + r) * d + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * ldh + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * ldh + c) = vv;
+  for (int cb = 0; cb < NCB; ++cb) zero(acc[cb]);
+  float sa[32], dpa[32];
+  uint32_t dsf[4][4];
+  if constexpr (kOverlap) {
+    wait_v(0);
+    wait_k(0);
+    start_scores<NCB>(sa, dpa, qs, dos, k_tiles(0), v_tiles(0));
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sa);
+    sm90::fence_regs(dpa);
+    release_v(0);
+    ds_tile(sa, dpa, lse_r, delta_r, 0, s_kv, t, qscale);
+    pack(dsf, sa);
+    for (int it = 1; it < n_kt; ++it) {
+      wait_v(it);
+      wait_k(it);
+      start_scores<NCB>(sa, dpa, qs, dos, k_tiles(it), v_tiles(it));
+      gemm_rs<NCB>(acc, dsf, k_tiles(it - 1));  // dQ += dS K of tile it - 1
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // S and dP of tile it
+      sm90::fence_regs(sa);
+      sm90::fence_regs(dpa);
+      release_v(it);
+      ds_tile(sa, dpa, lse_r, delta_r, 64 * it, s_kv, t, qscale);
+      sm90::wgmma_wait<0>();  // the dQ product of tile it - 1
+      fence_dq<NCB>(acc, dsf);
+      release_k(it - 1);
+      pack(dsf, sa);
     }
-    __syncthreads();
-
-    // S and dP for this warp's 16 query rows against the BK keys
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    for (int kk = 0; kk < d; kk += 16) {
-      uint32_t a[4], ad[4];
-      ldmatrix_x4(a, qs + (wrow + lr + 8 * (lm % 2)) * ldh + kk + 8 * (lm / 2));
-      ldmatrix_x4(ad, dos + (wrow + lr + 8 * (lm % 2)) * ldh + kk + 8 * (lm / 2));
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + ((n + lm / 2) * 8 + lr) * ldh + kk + 8 * (lm % 2));
-        mma_bf16(s[n], a, b[0], b[1]);
-        mma_bf16(s[n + 1], a, b[2], b[3]);
-        ldmatrix_x4(b, vs + ((n + lm / 2) * 8 + lr) * ldh + kk + 8 * (lm % 2));
-        mma_bf16(dp[n], ad, b[0], b[1]);
-        mma_bf16(dp[n + 1], ad, b[2], b[3]);
-      }
-    }
-    // dS over S, on rows g (e = 0, 1) and g + 8 (e = 2, 3)
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = score_ds(s[n][e], dp[n][e], lse_r[e >> 1], delta_r[e >> 1],
-                           q0 + wrow + g + 8 * (e >> 1), k0 + n * 8 + 2 * t + (e & 1), s_q,
-                           s_kv, qscale);
-
-    // dQ += dS K: dS rounded to bf16 as the A fragments of 16-key slices
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                             pack_bf16(s[2 * j][2], s[2 * j][3]),
-                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        if (n * 8 < d) {
-          // B of dim tiles n and n + 1, transposed: keys j*16 + (0..7 | 8..15)
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, ks + (j * 16 + lr + 8 * (lm % 2)) * ldh + (n + lm / 2) * 8);
-          mma_bf16(acc[n], a, b[0], b[1]);
-          mma_bf16(acc[n + 1], a, b[2], b[3]);
-        }
-      }
+    sm90::wgmma_fence();
+    gemm_rs<NCB>(acc, dsf, k_tiles(n_kt - 1));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_dq<NCB>(acc, dsf);
+    release_k(n_kt - 1);
+  } else {
+    for (int it = 0; it < n_kt; ++it) {
+      wait_v(it);
+      wait_k(it);
+      start_scores<NCB>(sa, dpa, qs, dos, k_tiles(it), v_tiles(it));
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sa);
+      sm90::fence_regs(dpa);
+      release_v(it);
+      ds_tile(sa, dpa, lse_r, delta_r, 64 * it, s_kv, t, qscale);
+      pack(dsf, sa);
+      sm90::wgmma_fence();
+      gemm_rs<NCB>(acc, dsf, k_tiles(it));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      fence_dq<NCB>(acc, dsf);
+      release_k(it);
     }
   }
 
+  // dQ = scale * acc in bf16, rows < s_q only
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + wrow + g + 8 * h;
-    if (row >= s_q) continue;
-    __nv_bfloat16* dq_row = dq + q_base + static_cast<size_t>(row) * d;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      if (n * 8 < d) {
-        *reinterpret_cast<uint32_t*>(dq_row + n * 8 + 2 * t) =
-            pack_bf16(scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
-      }
-    }
-  }
+  for (int cb = 0; cb < NCB; ++cb)
+    store_rows(dq, acc[cb], bh, s_q, d, row0, 64 * cb, warp, g, t, scale);
 }
 
-template <int DMAX, int BK>
-int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
-                  const float* lse, const float* delta, void* dq, int bh, int s_q, int s_kv,
-                  int d, float qscale, float scale, cudaStream_t stream) {
-  const size_t smem = dq_mma_smem_bytes<BK>(d);
-  auto kernel = flash_bwd_dq_mma_kernel<DMAX, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int NCB, int NWG, int KST, int VST, bool kOverlap>
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dq, int bh, int s_q, int s_kv,
+                    int d, float qscale, float scale, cudaStream_t stream) {
+  using L = DqTiles<NCB, NWG, KST, VST>;
+  auto kernel = flash_bwd_dq_wgmma_kernel<NCB, NWG, KST, VST, kOverlap>;
+  const long long n_qt = (s_q + 64 * NWG - 1) / (64 * NWG);
+  if (n_qt * bh > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (s_q + kMmaBQ - 1) / kMmaBQ);
-  using B16 = __nv_bfloat16;
-  kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const B16*>(q), static_cast<const B16*>(k), static_cast<const B16*>(v),
-      static_cast<const B16*>(dout), lse, delta, static_cast<B16*>(dq), s_q, s_kv, d, qscale,
-      scale);
+  // setmaxnreg moves registers between the warpgroups of a fixed pool: it
+  // needs the launch to hold kLaunchRegs a thread, or the consumers would wait forever
+  if (NWG == 2 && attr.numRegs != kLaunchRegs)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int map_err = sm90::make_tile_map(&tm_q, q, bh, s_q, d);
+  if (!map_err) map_err = sm90::make_tile_map(&tm_k, k, bh, s_kv, d);
+  if (!map_err) map_err = sm90::make_tile_map(&tm_v, v, bh, s_kv, d);
+  if (!map_err) map_err = sm90::make_tile_map(&tm_do, dout, bh, s_q, d);
+  if (map_err) return map_err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(n_qt * bh), 128 * (NWG + 1), L::total, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<__nv_bfloat16*>(dq),
+      static_cast<int>(n_qt), s_q, s_kv, d, qscale, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,13 +620,16 @@ int dispatch_dq_bf16(const void* q, const void* k, const void* v, const void* do
     return dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale,
                                       scale, st);
   if (d <= 64)
-    return launch_dq_mma<64, 64>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale,
-                                 scale, st);
+    return launch_dq_wgmma<1, 2, 4, 4, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d,
+                                             qscale, scale, st);
   if (d <= 128)
-    return launch_dq_mma<128, 64>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale,
-                                  scale, st);
-  return launch_dq_mma<256, 32>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, qscale, scale,
-                                st);
+    return launch_dq_wgmma<2, 2, 3, 3, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d,
+                                             qscale, scale, st);
+  if (d <= 192)
+    return launch_dq_wgmma<3, 2, 3, 2, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d,
+                                             qscale, scale, st);
+  return launch_dq_wgmma<4, 2, 2, 1, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d,
+                                            qscale, scale, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -202,24 +202,30 @@ def test_3xtf32_keeps_the_split_backward_at_f32_accuracy(d):
     assert min(rel_errs(1)) > 1e-4
 
 
-def test_tuning_program_times_the_library_source():
+@pytest.mark.parametrize("program, entry", [
+    ("split_bwd", "_Z25flash_bwd_dq_tf32_kernelILi128E"),
+    ("dq_bf16", "_Z25flash_bwd_dq_wgmma_kernelILi2ELi2ELi3ELi3ELb1EE"),
+    ("sosfilt", "_Z22sosfilt_chunked_kernelILi5ELb1EE"),
+])
+def test_tuning_program_times_the_library_source(program, entry):
     """``cli/tune_split_bwd.py`` builds a program that includes the kernel
     source itself, so it times what the library runs, and reports the ptxas
-    lines of the 3xTF32 kernels only."""
+    lines of the kernels under study only (the 3xTF32 kernels, the bf16
+    Hopper dQ kernel, the chunked IIR)."""
     from imagined_speech_translation_tpu_torch.cli import tune_split_bwd
 
-    src = (_kernels.CSRC / "tune" / "split_bwd.cu").read_text()
-    assert '#include "../flash_bwd_split.cu"' in src
-    assert (_kernels.CSRC / "flash_bwd_split.cu").exists()
+    source, fragment = tune_split_bwd.PROGRAMS[program]
+    src = (_kernels.CSRC / "tune" / f"{program}.cu").read_text()
+    assert f'#include "../{source}"' in src
+    assert source in _kernels.SOURCES
     log = "\n".join([
         "ptxas info    : Compiling entry function '_Z20flash_bwd_dq_kernelILi64E' for 'sm_90a'",
         "ptxas info    : Used 90 registers, used 1 barriers",
-        "ptxas info    : Compiling entry function '_Z25flash_bwd_dq_tf32_kernelILi128E' for 'sm_90a'",
+        f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
     ])
-    assert tune_split_bwd.ptxas_lines(log) == [
-        "_Z25flash_bwd_dq_tf32_kernelILi128E: 0 bytes stack frame, 0 bytes spill stores, "
-        "0 bytes spill loads",
-        "_Z25flash_bwd_dq_tf32_kernelILi128E: ptxas info    : Used 128 registers, used 1 barriers",
+    assert tune_split_bwd.ptxas_lines(log, fragment) == [
+        f"{entry}: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        f"{entry}: ptxas info    : Used 128 registers, used 1 barriers",
     ]
