@@ -74,12 +74,19 @@ Phases, each failing loudly (non-zero exit, no final line):
    (``default_config()``, B = 8, T = 1651, float32, 3 traced iterations
    after one warm-up): finite gradients, 5 flash forward, 5 split dQ and 5
    split dK/dV launches per iteration and no fused backward; then the same
-   with ``--tiny`` (head dims 12 and 24) for one iteration.
+   with ``--tiny`` (head dims 12 and 24) for one iteration;
+11. trainer: ``cli.train`` at full width on a synthetic corpus of 80
+   windows (2 epochs of 2 optimizer steps, an evaluation with beam search
+   and a checkpoint each), ``cli.train --resume`` for a third epoch and
+   ``cli.evaluate`` of the last checkpoint: finite metrics, exact launch
+   counts, a checkpoint restored bit for bit, and the evaluate CLI equal to
+   the trainer's own test evaluation.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
-bf16 and f32 training paths and the profile-train path (and, for the flash
-forward and the fused backward, the variants their checks ran).
+bf16 and f32 training paths, the profile-train path and the trainer path
+(and, for the flash forward and the fused backward, the variants their
+checks ran).
 ``dropout_mask`` is a check-only probe: the mask it writes is the
 ``__device__`` function every flash launch with dropout evaluates, so its
 own launch count is 0 on every path.  Imports nothing of JAX.
@@ -1420,6 +1427,232 @@ def phase_profile_train(smi: str):
     return launches
 
 
+def _finite_numbers(record: dict, where: str) -> int:
+    """Raises unless every number in ``record`` is finite; returns how many
+    there were."""
+    import math
+
+    n = 0
+    for k, v in record.items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            if not math.isfinite(v):
+                raise AssertionError(f"{where}: {k} = {v}")
+            n += 1
+    return n
+
+
+def _assert_states_equal(a, b) -> int:
+    """Raises unless two train states hold the same step, optimizer count,
+    loss weights and tensors (parameters, BatchNorm statistics, both
+    moments), bit for bit; returns the tensor count."""
+    import torch
+
+    if (a.step, a.opt_state.count, a.loss_weights) != (b.step, b.opt_state.count, b.loss_weights):
+        raise AssertionError(f"restored step/count/weights {a.step} {a.opt_state.count} "
+                             f"{a.loss_weights} != {b.step} {b.opt_state.count} {b.loss_weights}")
+    n = 0
+    for what, x, y in (("module", a.module.state_dict(), b.module.state_dict()),
+                       ("mu", a.opt_state.mu, b.opt_state.mu),
+                       ("nu", a.opt_state.nu, b.opt_state.nu)):
+        if set(x) != set(y):
+            raise AssertionError(f"restored {what} keys differ")
+        for k in x:
+            if x[k].dtype != y[k].dtype or not torch.equal(x[k], y[k]):
+                raise AssertionError(f"restored {what}.{k} differs from the live state")
+            n += 1
+    return n
+
+
+def phase_trainer(smi: str):
+    """The trainer path at full width through the port's entry points: a
+    synthetic corpus of 10 files x 8 windows of 125 channels x 1651 samples
+    (seed 0; split 64 / 8 / 8) and ``default_config()`` (mixed precision)
+    with 2 epochs, an evaluation and a checkpoint every epoch, one epoch
+    checkpoint kept.  (a) ``cli.train``: 2 epochs of 2 windows (8
+    micro-steps of 4), each followed by an evaluation of the 8 validation
+    windows, then the test evaluation; (b) ``cli.train --resume`` with 3
+    epochs: it resumes from ``checkpoint_epoch_2`` at epoch 2 and trains one;
+    (c) ``cli.evaluate`` of ``checkpoint_epoch_3`` on the test split.
+    Checks: every logged number finite; steps 4 and 6; exact launch counts
+    (5 flash forward and 5 fused backward a micro-step, 5 + 5 flash forward
+    an evaluation batch: the eval step's encoder and beam search's encode;
+    no split backward, no IIR); the last checkpoint restored into a fresh
+    state equals the live state bit for bit; (c) equals (b)'s test
+    evaluation of the same weights on the same windows (losses within 1e-6
+    relative, predictions identical): the trainer, as the JAX one, evaluates
+    augmented windows while augmentation is on, and the evaluate CLI plain
+    ones, so (c) is held to (b)'s trainer evaluating the plain test windows.
+    wandb is disabled for the run.  The scratch directory lives under
+    ``build/`` and is removed at the end."""
+    import json
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import evaluate as evaluate_cli
+    from imagined_speech_translation_tpu_torch.cli import train as train_cli
+    from imagined_speech_translation_tpu_torch.cli.profile_slice import synthetic_vocab
+    from imagined_speech_translation_tpu_torch.config import default_config
+    from imagined_speech_translation_tpu_torch.data import (
+        make_synthetic_corpus,
+        make_synthetic_montage,
+    )
+    from imagined_speech_translation_tpu_torch.training import CheckpointManager, EEGTrainer
+
+    cfg = default_config()
+    tc = cfg.training
+    micro_steps = tc.grad_accum_steps  # a window is 8 micro-steps of 4
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="trainer_smoke_", dir=build))
+    evals, saves = [], []
+    evaluate, save = EEGTrainer.evaluate, CheckpointManager._save
+
+    def timed_evaluate(self, state, *, epoch=0):
+        t0 = time.perf_counter()
+        out = evaluate(self, state, epoch=epoch)
+        evals.append(time.perf_counter() - t0)
+        return out
+
+    def timed_save(self, name, state, meta):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, name, state, meta)
+        nbytes = sum(p.stat().st_size for p in (self.dir / name).iterdir())
+        saves.append((name, time.perf_counter() - t0, nbytes))
+
+    EEGTrainer.evaluate, CheckpointManager._save = timed_evaluate, timed_save
+    # get_logger mirrors to wandb where it is installed, and wandb.init
+    # reaches for the network: this run logs to metrics.jsonl only
+    wandb_mode = os.environ.get("WANDB_MODE")
+    os.environ["WANDB_MODE"] = "disabled"
+    try:
+        make_synthetic_montage(tmp / "montage.csv")
+        make_synthetic_corpus(tmp / "data", n_files=10, samples_per_file=8,
+                              n_timepoints=cfg.data.n_timepoints, seed=0)
+        (tmp / "vocab.txt").write_text("\n".join(synthetic_vocab(cfg.model.bart.vocab_size))
+                                       + "\n", encoding="utf-8")
+        free = shutil.disk_usage(tmp).free / 2**30
+        args = ["--data-dir", str(tmp / "data"), "--montage", str(tmp / "montage.csv"),
+                "--vocab", str(tmp / "vocab.txt"), "--device", "cuda"]
+        for s in ("training.num_epochs=2", "training.eval_interval_epochs=1",
+                  "training.checkpoint.save_interval_epochs=1",
+                  "training.checkpoint.max_to_keep=1"):
+            args += ["--set", s]
+        out = tmp / "out"
+        log(f"[trainer] corpus of 80 windows (125 x 1651, seed 0) in {tmp} "
+            f"({free:.0f} GiB free); default_config(), mixed precision "
+            f"{tc.mixed_precision}, accum {micro_steps} x {tc.batch_size}")
+
+        def drive(tag, fn, argv):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fn(argv)
+            torch.cuda.synchronize()
+            launches = _kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[trainer] ({tag}) {time.perf_counter() - t0:.1f} s, peak memory "
+                f"{peak:.1f} GiB, launches {launches}")
+            return res, launches, peak
+
+        def want_launches(tag, launches, windows, eval_batches):
+            want = dict(sosfilt=0, flash_fwd=5 * micro_steps * windows + 10 * eval_batches,
+                        flash_bwd=5 * micro_steps * windows, flash_bwd_dq=0, flash_bwd_dkv=0,
+                        dropout_mask=0)
+            if launches != want:
+                raise AssertionError(f"trainer ({tag}) launched {launches}, want {want}")
+
+        a, la, peak_a = drive("a", train_cli.main, args + ["--out-dir", str(out)])
+        if a["state"].step != 4:
+            raise AssertionError(f"(a) ended at step {a['state'].step}, want 4")
+        # 2 epochs x 2 windows; 2 validation evaluations + the test one, 1 batch each
+        want_launches("a", la, windows=4, eval_batches=3)
+        n_evals_a, saves_a = len(evals), list(saves)
+        del a
+        torch.cuda.empty_cache()
+
+        b, lb, peak_b = drive("b", train_cli.main, args + [
+            "--out-dir", str(out), "--resume", "--set", "training.num_epochs=3"])
+        trainer, live = b["trainer"], b["state"]
+        if trainer.start_epoch != 2 or live.step != 6:
+            raise AssertionError(f"(b) resumed at epoch {trainer.start_epoch} and ended at "
+                                 f"step {live.step}, want epoch 2 and step 6")
+        want_launches("b", lb, windows=2, eval_batches=2)
+        ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
+        if "checkpoint_epoch_3" not in ckpts or "checkpoint_epoch_2" in ckpts:
+            raise AssertionError(f"checkpoints after (b): {ckpts}")
+
+        rows = [json.loads(line) for line in (out / "metrics.jsonl").open()]
+        numbers = sum(_finite_numbers(r, f"metrics.jsonl line {i}") for i, r in enumerate(rows))
+        _finite_numbers(b["test_metrics"], "(b) test metrics")
+        sps = [r["train/samples_per_sec"] for r in rows if "train/samples_per_sec" in r]
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        val = [r["val/val_loss"] for r in rows if "val/val_loss" in r]
+        log(f"[trainer] metrics.jsonl: {len(rows)} lines, {numbers} numbers, all finite; "
+            f"train/loss at the logged steps {[round(x, 4) for x in losses]}; val_loss "
+            f"{[round(x, 4) for x in val]}; train/samples_per_sec by epoch "
+            f"{[round(x, 2) for x in sps]} (epoch 0 of (a) includes first calls)")
+
+        t0 = time.perf_counter()
+        fresh = trainer.init_state(seed=1)
+        restored, _ = trainer.ckpt.restore("checkpoint_epoch_3", fresh)
+        n_tensors = _assert_states_equal(restored, live)
+        log(f"[trainer] checkpoint_epoch_3 restored into a fresh state in "
+            f"{time.perf_counter() - t0:.1f} s: {n_tensors} tensors, step {restored.step}, "
+            f"loss weights equal to the live state's, bit for bit")
+        # the trainer evaluates the windows its dataset gives, augmented as
+        # the JAX trainer's are when augmentation is on; cli.evaluate reads
+        # them plain: (c) is held to the trainer's evaluation of the same
+        # weights on the plain windows
+        test_aug = b["test_metrics"]
+        trainer.dataset.augment = False
+        test_b = trainer.evaluate(live)
+        del b, trainer, live, fresh, restored
+        torch.cuda.empty_cache()
+
+        c, lc, peak_c = drive("c", evaluate_cli.main, args + [
+            "--checkpoint", str(out / "checkpoints" / "checkpoint_epoch_3"), "--split", "test"])
+        want_launches("c", lc, windows=0, eval_batches=1)
+        _finite_numbers(c, "(c) metrics")
+        rel = {k: abs(c[k] - test_b[k]) / max(abs(test_b[k]), 1e-30)
+               for k in ("val_loss", "loss_ce", "loss_align", "loss_bow", "loss_div", "loss_var")}
+        if max(rel.values()) > 1e-6 or c["predictions"] != test_b["predictions"]:
+            raise AssertionError(f"cli.evaluate differs from the trainer's test evaluation: "
+                                 f"rel {rel}, predictions {c['predictions']} vs "
+                                 f"{test_b['predictions']}")
+        log(f"[trainer] (c) cli.evaluate agrees with the trainer's test evaluation on the "
+            f"plain windows: max rel err of the losses {max(rel.values()):.2e}, "
+            f"{len(c['predictions'])} predictions identical, bleu_4 {c['bleu_4']}, "
+            f"diversity {c['diversity_score']}")
+        gap = {k: abs(c[k] - test_aug[k]) / max(abs(test_aug[k]), 1e-30) for k in rel}
+        log(f"[trainer] (b)'s own test evaluation (augmented windows) lies {gap} from (c); "
+            f"predictions {'identical' if c['predictions'] == test_aug['predictions'] else 'differ'}")
+
+        ev = np.array(evals)
+        log(f"[trainer] on {smi}: (a) train/samples_per_sec {sps[0]:.2f} (epoch 0), "
+            f"{sps[1]:.2f} (epoch 1); (b) {sps[2]:.2f}; an evaluation of 8 windows "
+            f"{ev.min():.3f}-{ev.max():.3f} s over {len(ev)} ({n_evals_a} in (a), all "
+            f"{ev.round(3).tolist()}); a save "
+            f"{', '.join(f'{n} {s:.2f} s {nb / 1e9:.3f} GB' for n, s, nb in saves)} "
+            f"({len(saves_a)} in (a)); peak memory {peak_a:.1f} / {peak_b:.1f} / "
+            f"{peak_c:.1f} GiB in (a) / (b) / (c)")
+        return {k: la[k] + lb[k] + lc[k] for k in la}
+    finally:
+        EEGTrainer.evaluate, CheckpointManager._save = evaluate, save
+        if wandb_mode is None:
+            os.environ.pop("WANDB_MODE", None)
+        else:
+            os.environ["WANDB_MODE"] = wandb_mode
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # the check whose numbers head each kernel's entry: the shape and dtype the
 # path runs most (serving flash forward at B=16, training backward at
 # micro-batch 4 with dropout, the split backward of the eval-mode gradient
@@ -1482,11 +1715,14 @@ def main() -> int:
     train_f32_launches = timed(phase_train, smi, False)
     timed(phase_train_card_vs_cpu)
     profile_launches = timed(phase_profile_train, smi)
+    torch.cuda.empty_cache()
+    trainer_launches = timed(phase_trainer, smi)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(summary(checks, {"serving": serve_launches, "training": train_launches,
                                     "training_f32": train_f32_launches,
-                                    "profile_train": profile_launches})))
+                                    "profile_train": profile_launches,
+                                    "trainer": trainer_launches})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -175,3 +175,11 @@ class BrainRegionEncoder(nn.Module):
             fused = (x * combined[..., None]).sum(dim=1)
 
         return fused + cfg.enhancer_weight * self.feature_enhancer(fused, generator)
+
+    def region_weights(self) -> dict:
+        """Static softmax region importance, for the evaluation log."""
+        names = ("frontal", "temporal", "central", "parietal")
+        if self.cfg.uniform_region_weight:
+            return {"names": names, "softmax": [0.25] * 4, "has_dynamic": False}
+        w = torch.softmax(self.region_importance.detach().float(), dim=0)
+        return {"names": names, "softmax": w.tolist(), "has_dynamic": True}

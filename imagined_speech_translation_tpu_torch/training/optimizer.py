@@ -24,7 +24,7 @@ they lie, which saves a copy of each at 308M parameters):
 ``torch.optim.AdamW`` is not used: its moments take the parameters' dtype
 and it has no ``mu_dtype``.  The JAX package offers the same update as an
 optax chain too (``fused=False``), with the same numerics; the port has the
-fused form only.
+fused form only, and :func:`build_optimizer` returns it for either setting.
 """
 
 from __future__ import annotations
@@ -164,3 +164,17 @@ class FusedAdamW:
             state.mu[name].copy_(mu)
         state.count += 1
         return g_norm
+
+
+def build_optimizer(params, cfg: OptimizerConfig, total_steps: int) -> FusedAdamW:
+    """The optimizer of ``cfg`` over ``params`` (a mapping of parameter names
+    to tensors, or the names).  ``cfg.fused`` selects between two forms of
+    one update in the JAX package (``config.py``: the numerics are the same),
+    so both settings give :class:`FusedAdamW`."""
+    return FusedAdamW(list(params), cfg, total_steps)
+
+
+def learning_rates_at(cfg: OptimizerConfig, total_steps: int, step) -> dict[str, float]:
+    """Each group's learning rate at ``step``, for logging."""
+    return {name: make_schedule(lr, cfg, total_steps)(step)
+            for name, lr in group_lrs(cfg).items()}

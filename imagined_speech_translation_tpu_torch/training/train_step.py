@@ -17,6 +17,9 @@ numerics:
 * the dropout stream of micro-step ``i`` is a generator seeded from one draw
   of the step's generator and ``i`` (``jax.random.fold_in(rng, i)``).
 
+The eval step runs the float32 parameters on float32 EEG whatever
+``training.mixed_precision`` says, as the JAX package's does.
+
 ``batch`` leaves are shaped ``(accum, micro_batch, ...)`` except
 ``channel_mask``, which is shared.
 """
@@ -40,15 +43,18 @@ def _micro_generator(base_seed: int, i: int) -> torch.Generator:
     return torch.Generator().manual_seed(base_seed + i)
 
 
-def make_loss_fn(module: TrainModule, cfg: Config, bow_indices):
+def make_loss_fn(module: TrainModule, cfg: Config, bow_indices, *,
+                 mixed: bool | None = None):
     """``loss_fn(params, micro_batch, generator, loss_weights) -> (total,
     components)``.  ``params`` maps the module's parameter names to the
     tensors to run it with (the bfloat16 copy under mixed precision).  With
     a generator the forward runs in train mode (dropout from it, BatchNorm on
     batch statistics, running statistics updated in place); with ``None`` in
-    eval mode, as :func:`make_eval_step`'s."""
+    eval mode, as :func:`make_eval_step`'s.  ``mixed`` (default
+    ``training.mixed_precision``) casts the EEG to bfloat16."""
     loss_cfg = cfg.training.loss
-    mixed = cfg.training.mixed_precision
+    if mixed is None:
+        mixed = cfg.training.mixed_precision
 
     def loss_fn(params, micro_batch, generator, loss_weights):
         eeg = micro_batch["eeg"]
@@ -130,8 +136,10 @@ def make_train_step(module: TrainModule, optimizer: FusedAdamW, cfg: Config,
 
 
 def make_eval_step(module: TrainModule, cfg: Config, bow_indices) -> Callable:
-    """Teacher-forced validation loss: ``eval_step(state, batch) -> metrics``."""
-    loss_fn = make_loss_fn(module, cfg, bow_indices)
+    """Teacher-forced validation loss: ``eval_step(state, batch) -> metrics``,
+    in float32 (the master parameters on float32 EEG) under any precision
+    setting."""
+    loss_fn = make_loss_fn(module, cfg, bow_indices, mixed=False)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict):
