@@ -80,13 +80,31 @@ Phases, each failing loudly (non-zero exit, no final line):
    and a checkpoint each), ``cli.train --resume`` for a third epoch and
    ``cli.evaluate`` of the last checkpoint: finite metrics, exact launch
    counts, a checkpoint restored bit for bit, and the evaluate CLI equal to
-   the trainer's own test evaluation.
+   the trainer's own test evaluation;
+12. server: the serving entry point on the trainer's last checkpoint at
+   full width (``default_config()``, T = 1651, beam 3 pinned to length 16,
+   BatchNorm folded, bf16): ``cli.serve.build_decode_fn_from_args`` loads it
+   strictly, ``cli.serve.build_service`` wires the websocket service as
+   ``cli.serve main`` does (one ``BatchScheduler``, max batch 16 and a 25 ms
+   deadline, shared by a ``BatchingDecodePipeline`` a session; the command
+   table with ``latency``), and 16 authenticated sessions stream 2 windows
+   each as ``eeg`` frames of 125 x 250 samples, concurrently, then
+   ``eeg_end``: 32 utterances, each session's in order, exactly 1 IIR and 5
+   flash forward launches per decode batch, each window's ids equal to the
+   decode function's on a batch of the same 16 windows, the ``latency``
+   command's stats; the float16 wire gives identical ids on windows exact in
+   float16; a ``DecodeWorker`` child answers as in-process decoding does,
+   before and after one forced recycle; a second round of 16 new sessions
+   gives the same utterances.  Windows/s through the service and
+   window-to-utterance p50 and p99 of both rounds, the child's start
+   seconds and RSS.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
-bf16 and f32 training paths, the profile-train path and the trainer path
-(and, for the flash forward and the fused backward, the variants their
-checks ran).
+bf16 and f32 training paths, the profile-train path, the trainer path and
+the server path (and, for the flash forward and the fused backward, the
+variants their checks ran), and the one before that the card's name and
+power limit.
 ``dropout_mask`` is a check-only probe: the mask it writes is the
 ``__device__`` function every flash launch with dropout evaluates, so its
 own launch count is 0 on every path.  Imports nothing of JAX.
@@ -1076,16 +1094,31 @@ def phase_split_kernels():
     return checks
 
 
-def recording_tokenizer(vocab):
-    """The port's tokenizer, keeping the ids of the last ``batch_decode``."""
+def recording_tokenizer_class():
+    """The port's tokenizer class, whose instances keep every id batch they
+    decode (``.history``, the last as ``.ids``); ``Recording.instances``
+    lists them."""
+    import numpy as np
+
     from imagined_speech_translation_tpu_torch.data import ChineseCharTokenizer
 
     class Recording(ChineseCharTokenizer):
+        instances: list = []
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.history = []
+            Recording.instances.append(self)
+
+        @property
+        def ids(self):
+            return self.history[-1]
+
         def batch_decode(self, batch_ids, **kw):
-            self.ids = batch_ids
+            self.history.append(np.asarray(batch_ids))
             return super().batch_decode(batch_ids, **kw)
 
-    return Recording(vocab)
+    return Recording
 
 
 def phase_slice(smi: str):
@@ -1107,7 +1140,7 @@ def phase_slice(smi: str):
     # pinned decode length (min == max): every window decodes all 16 tokens
     cfg = replace_nested(cfg, "generation.min_length", cfg.generation.max_length)
     T = cfg.data.n_timepoints
-    tok = recording_tokenizer(synthetic_vocab(cfg.model.bart.vocab_size))
+    tok = recording_tokenizer_class()(synthetic_vocab(cfg.model.bart.vocab_size))
     spec = RegionSpec.from_channel_names(synthetic_montage())
     t0 = time.perf_counter()
     model = build_model(cfg.model, T, seed=0, device=DEVICE)
@@ -1463,7 +1496,7 @@ def _assert_states_equal(a, b) -> int:
     return n
 
 
-def phase_trainer(smi: str):
+def phase_trainer(smi: str, tmp):
     """The trainer path at full width through the port's entry points: a
     synthetic corpus of 10 files x 8 windows of 125 channels x 1651 samples
     (seed 0; split 64 / 8 / 8) and ``default_config()`` (mixed precision)
@@ -1482,13 +1515,13 @@ def phase_trainer(smi: str):
     relative, predictions identical): the trainer, as the JAX one, evaluates
     augmented windows while augmentation is on, and the evaluate CLI plain
     ones, so (c) is held to (b)'s trainer evaluating the plain test windows.
-    wandb is disabled for the run.  The scratch directory lives under
-    ``build/`` and is removed at the end."""
+    wandb is disabled for the run.  ``tmp`` is the caller's scratch
+    directory (under ``build/``): the corpus, ``montage.csv``, ``vocab.txt``
+    and ``out/checkpoints/checkpoint_epoch_3`` stay there for the server
+    phase."""
     import json
     import os
     import shutil
-    import tempfile
-    from pathlib import Path
 
     import numpy as np
     import torch
@@ -1507,9 +1540,6 @@ def phase_trainer(smi: str):
     cfg = default_config()
     tc = cfg.training
     micro_steps = tc.grad_accum_steps  # a window is 8 micro-steps of 4
-    build = Path(__file__).resolve().parent / "build"
-    build.mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="trainer_smoke_", dir=build))
     evals, saves = [], []
     evaluate, save = EEGTrainer.evaluate, CheckpointManager._save
 
@@ -1650,6 +1680,237 @@ def phase_trainer(smi: str):
             os.environ.pop("WANDB_MODE", None)
         else:
             os.environ["WANDB_MODE"] = wandb_mode
+
+
+def build_recorded(fargs: dict):
+    """``cli.serve.build_decode_fn_from_args(**fargs)`` and the tokenizer it
+    built, which records the ids of every batch."""
+    from imagined_speech_translation_tpu_torch.cli import serve
+
+    Recording, plain = recording_tokenizer_class(), serve.ChineseCharTokenizer
+    serve.ChineseCharTokenizer = Recording
+    try:
+        decode_fn = serve.build_decode_fn_from_args(**fargs)
+    finally:
+        serve.ChineseCharTokenizer = plain
+    return decode_fn, Recording.instances[-1]
+
+
+SESSIONS, WINDOWS_EACH, FRAME = 16, 2, 250  # FRAME samples: 0.5 s at 500 Hz
+
+
+def phase_server(smi: str, tmp):
+    """12. The serving entry point on the trainer phase's last checkpoint
+    (``tmp/out/checkpoints/checkpoint_epoch_3``, its ``vocab.txt`` and
+    125-channel ``montage.csv``), at full width: ``default_config()`` with
+    beam 3 pinned to length 16, BatchNorm folded, bf16.  The decode function
+    comes from ``cli.serve.build_decode_fn_from_args`` (the checkpoint loads
+    strictly), the service from ``cli.serve.build_service`` as ``main``
+    wires it: one ``BatchScheduler`` (max batch 16, 25 ms deadline) shared by
+    a ``BatchingDecodePipeline`` a session, and the command table with
+    ``latency``.  16 sessions, each authenticated by a text frame, stream 2
+    windows each (hop = window) as ``eeg`` frames of 125 x 250 float32
+    samples, concurrently through ``handle_binary``, then ``eeg_end``.
+    Checks: 32 utterances, each session's 2 in order; 1 ``sosfilt`` and 5
+    ``flash_fwd`` launches per decode batch of the scheduler and no other
+    kernel; each window's ids equal those of ``decode_fn`` called directly
+    on a batch of the same 16 windows; ``latency`` answers with the
+    scheduler's stats; the same windows rounded to float16 decode to
+    identical ids through the float16 wire; a ``DecodeWorker`` child
+    (``functools.partial`` of ``build_decode_fn_from_args``) answers a batch
+    as in-process decoding does, and again after one forced recycle.  A
+    second round, 16 new sessions on the same samples, must give the same
+    utterances and launch counts; it is timed beside the first, whose first
+    batch also starts the scheduler's decode thread.  Returns the first
+    round's launches."""
+    import asyncio
+    import functools
+
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import serve
+    from imagined_speech_translation_tpu_torch.config import default_config, replace_nested
+    from imagined_speech_translation_tpu_torch.runtime.worker import DecodeWorker, _rss_mb
+
+    cfg = default_config()
+    cfg = replace_nested(cfg, "generation.min_length", cfg.generation.max_length)
+    T = cfg.data.n_timepoints
+    (tmp / "serve_config.json").write_text(cfg.to_json())
+    ckpt = tmp / "out" / "checkpoints" / "checkpoint_epoch_3"
+    fargs = dict(vocab=str(tmp / "vocab.txt"), montage=str(tmp / "montage.csv"),
+                 config=str(tmp / "serve_config.json"), checkpoint=str(ckpt), device="cuda",
+                 compute_dtype="bfloat16", max_batch=SESSIONS)
+    t_phase = time.perf_counter()
+    decode_fn, tok = build_recorded(fargs)
+    log(f"[server] decode function from {ckpt.name} (strict load, BN folded, bf16) built and "
+        f"warmed in {time.perf_counter() - t_phase:.1f} s")
+
+    rng = np.random.default_rng(12)
+    eeg = rng.normal(size=(SESSIONS, 125, WINDOWS_EACH * T)).astype(np.float32)
+    windows = [[eeg[i][:, k * T:(k + 1) * T] for k in range(WINDOWS_EACH)]
+               for i in range(SESSIONS)]
+    batches, decode_s = [], []
+
+    def recorded(batch):
+        batches.append(np.array(batch))
+        t0 = time.perf_counter()
+        out = decode_fn(batch)  # ends in a copy to the host
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    service, scheduler = serve.build_service(recorded, n_channels=125, window=T,
+                                             max_batch=SESSIONS, max_delay_ms=25)
+
+    async def session(i, user):
+        key = json.loads((await service.handle_text(f"authentication¬user{user}")).split("¬")[2])
+        head, out = b"eeg|" + key.encode() + b"|", []
+        for start in range(0, eeg.shape[2], FRAME):
+            frame = np.ascontiguousarray(eeg[i][:, start:start + FRAME])
+            out += await service.handle_binary(head + frame.tobytes())
+        out += await service.handle_binary(b"eeg_end|" + key.encode() + b"|")
+        return key, out
+
+    async def one_round(first_user):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*(session(i, first_user + i) for i in range(SESSIONS)))
+        return res, time.perf_counter() - t0, _kernels.launch_counts(), scheduler.batches
+
+    async def run():
+        # round A is the checked one; round B, 16 new sessions on the same
+        # samples, shows the service once its decode thread is warm
+        async with scheduler:
+            a = await one_round(0)
+            b = await one_round(SESSIONS)
+            return a, b, await service.handle_text(f"latency¬{a[0][0][0]}")
+
+    n0 = len(tok.history)
+    torch.cuda.synchronize()
+    (res, wall, launches, n_batches), (res_b, wall_b, launches_b, n_all), latency = \
+        asyncio.run(run())
+    service_ids = tok.history[n0:n0 + n_batches]
+    texts = [out for _, out in res]
+    fills = list(scheduler.fills)
+    log(f"[server] {SESSIONS} sessions x {WINDOWS_EACH} windows in frames of {FRAME} samples: "
+        f"{sum(map(len, texts))} utterances in {wall:.3f} s, {n_batches} decode batches (fills "
+        f"{fills[:n_batches]}), launches {launches}; round B: {wall_b:.3f} s, "
+        f"{n_all - n_batches} batches (fills {fills[n_batches:]}), launches {launches_b}")
+    if [len(t) for t in texts] != [WINDOWS_EACH] * SESSIONS:
+        raise AssertionError(f"utterances per session: {[len(t) for t in texts]}")
+    if [out for _, out in res_b] != texts:
+        raise AssertionError("round B's sessions got other utterances than round A's")
+    for got, n in ((launches, n_batches), (launches_b, n_all - n_batches)):
+        want = dict(sosfilt=n, flash_fwd=5 * n, flash_bwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                    dropout_mask=0)
+        if got != want:
+            raise AssertionError(f"the service launched {got} over {n} batches, want {want}")
+    if len(service_ids) != n_batches:
+        raise AssertionError(f"{len(service_ids)} id batches decoded over {n_batches} batches")
+
+    # each window's ids: from the service's batch, and from decode_fn called
+    # directly on a batch of the same 16 windows (the k-th of each session)
+    where = {}
+    for j, (batch, fill) in enumerate(zip(batches[:n_batches], fills)):
+        for r in range(fill):
+            hit = [(i, k) for i in range(SESSIONS) for k in range(WINDOWS_EACH)
+                   if np.array_equal(batch[r], windows[i][k])]
+            if len(hit) != 1:
+                raise AssertionError(f"batch {j} row {r} is no single session window: {hit}")
+            where[hit[0]] = service_ids[j][r]
+    direct_texts, direct_ids = [], []
+    for k in range(WINDOWS_EACH):
+        direct_texts.append(decode_fn(np.stack([windows[i][k] for i in range(SESSIONS)])))
+        direct_ids.append(tok.ids)
+    differ = [(i, k) for i in range(SESSIONS) for k in range(WINDOWS_EACH)
+              if not np.array_equal(where[(i, k)], direct_ids[k][i])]
+    if len(where) != SESSIONS * WINDOWS_EACH or differ:
+        raise AssertionError(f"windows whose service ids differ from the direct decode's: "
+                             f"{differ} of {len(where)}")
+    in_order = [[direct_texts[k][i] for k in range(WINDOWS_EACH)] for i in range(SESSIONS)]
+    if texts != in_order:
+        raise AssertionError("a session's utterances are not its windows' texts in order")
+    log(f"[server] every window's ids equal decode_fn's on a batch of the same 16 windows; "
+        f"each session's utterances in order; session 0: {texts[0][0][:40]!r}")
+
+    command, name, body = latency.split("¬")
+    pooled = json.loads(body).get("pooled", {})
+    if (command, name) != ("ok", "latency") or pooled.get("count") != 2 * len(where) \
+            or pooled.get("batches") != n_all:
+        raise AssertionError(f"latency command answered {latency!r}")
+    lat = np.array(scheduler.latency.samples_ms)  # in order: round A's, then B's
+    n = len(where)
+    for tag, ms, secs, dec in (("round A (the service's first batches)", lat[:n], wall,
+                                decode_s[:n_batches]),
+                               ("round B", lat[n:], wall_b, decode_s[n_batches:n_all])):
+        log(f"[server] on {smi}: {tag}: {n / secs:.2f} windows/s through the service ({n} "
+            f"windows, {secs:.3f} s); window-to-utterance latency p50 "
+            f"{np.percentile(ms, 50):.1f} ms, p99 {np.percentile(ms, 99):.1f} ms (LatencyStats: "
+            f"min {ms.min():.1f}, max {ms.max():.1f}); decode_fn per batch "
+            f"{[round(s, 4) for s in dec]} s")
+    log(f"[server] latency command: {pooled}")
+
+    # the float16 wire: windows exact in float16 give identical ids
+    w16 = np.stack([windows[i][0] for i in range(SESSIONS)]).astype(np.float16)
+    w16 = w16.astype(np.float32)
+    decode_fn(w16)
+    ids32 = tok.ids
+    decode16, tok16 = build_recorded(dict(fargs, transfer_dtype="float16"))
+    decode16(w16)
+    if not np.array_equal(tok16.ids, ids32):
+        raise AssertionError("the float16 wire decodes other ids than the float32 wire")
+    log("[server] float16 wire: 16 windows rounded to float16 decode to identical ids")
+    del decode16, tok16
+    torch.cuda.empty_cache()
+
+    # the decode function in a recycled child process
+    batch0 = np.stack([windows[i][0] for i in range(SESSIONS)])
+    want_texts = decode_fn(batch0)
+    worker = DecodeWorker(functools.partial(serve.build_decode_fn_from_args, **fargs),
+                          rss_budget_mb=1e9, check_every=1)
+    try:
+        t0 = time.perf_counter()
+        worker.start()
+        start_s = time.perf_counter() - t0
+        rss = _rss_mb(worker._proc.pid)
+        pid0 = worker._proc.pid
+        if worker(batch0) != want_texts:
+            raise AssertionError("the decode worker's child answers otherwise than in-process")
+        worker.rss_budget_mb = 1.0  # below the child's RSS: this call recycles it
+        t0 = time.perf_counter()
+        again = worker(batch0)
+        recycle_s = time.perf_counter() - t0
+        worker.rss_budget_mb = 1e9
+        after = worker(batch0)
+        if worker.recycles != 1 or worker._proc.pid == pid0 or again != want_texts \
+                or after != want_texts:
+            raise AssertionError(f"decode worker after a forced recycle: {worker.stats()}")
+        stats = worker.stats()
+    finally:
+        worker.stop()
+    log(f"[server] on {smi}: decode worker child started (built, loaded, warmed) in "
+        f"{start_s:.1f} s, RSS {rss:.0f} MB; a batch with a forced recycle {recycle_s:.1f} s; "
+        f"answers equal in-process decoding before and after ({stats})")
+    log(f"[server] phase {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
+def run_trainer_and_server(smi: str):
+    """The trainer phase, then the server phase on its checkpoint, in one
+    scratch directory under ``build/`` that is removed afterwards.  Returns
+    both phases' launches."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="trainer_smoke_", dir=build))
+    try:
+        trainer = timed(phase_trainer, smi, tmp)
+        return trainer, timed(phase_server, smi, tmp)
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1716,13 +1977,14 @@ def main() -> int:
     timed(phase_train_card_vs_cpu)
     profile_launches = timed(phase_profile_train, smi)
     torch.cuda.empty_cache()
-    trainer_launches = timed(phase_trainer, smi)
+    trainer_launches, server_launches = run_trainer_and_server(smi)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(summary(checks, {"serving": serve_launches, "training": train_launches,
                                     "training_f32": train_f32_launches,
                                     "profile_train": profile_launches,
-                                    "trainer": trainer_launches})))
+                                    "trainer": trainer_launches,
+                                    "server": server_launches})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,62 +1,53 @@
-"""Cross-session batch scheduler: a copy of the JAX package's
-``runtime.batcher.BatchScheduler`` with the ``LatencyStats`` it records into
-(from ``runtime/streaming.py``).
+"""Cross-session batch scheduler: many device streams, one decode function.
 
-Many sessions submit ``(C, T)`` windows; the scheduler pads what is pending
-to ``max_batch`` rows and calls ``decode_fn`` once per batch, when the batch
-fills or ``max_delay_ms`` after the oldest pending window arrived.  One
-dispatcher task owns the device, and the decode call runs in a worker
-thread so the event loop stays free.  ``tests/test_torch_config.py`` holds
-the copy to the original.  The per-session ``BatchingDecodePipeline`` (and
-the ``Windower`` it feeds from) is not ported.
+The per-session :class:`~.streaming.DecodePipeline` batches only within a
+single device's stream, so a server with many lightly-active sessions runs
+the decode function at batch 1-2, paying a whole batch's latency per window
+while the card sits mostly idle.  The reference has no equivalent: its Node
+plane is request/response and its Dart plane decodes per-message
+(``dart_wss``, SURVEY.md §3.5).
+
+Design decisions:
+
+* **One static batch shape.**  Every call pads the collected windows to
+  ``max_batch`` rows, so the decode function sees one shape whatever the
+  fill.  Padding rows reuse the first window (``pad_mode="zeros"`` pads
+  with zeros) and their outputs are dropped.
+* **Fill-or-deadline.**  A batch launches when ``max_batch`` windows are
+  pending, or ``max_delay_ms`` after the OLDEST pending window arrived:
+  bounded added latency under light load, full batches under heavy load.
+* **Single dispatcher.**  One background task owns the device: decode
+  calls never overlap, and the event loop stays free, since the decode
+  call runs in a worker thread.
 
 Usage::
 
-    async with BatchScheduler(decode_fn, max_batch=16, max_delay_ms=25) as sched:
+    sched = BatchScheduler(decode_fn, max_batch=16, max_delay_ms=25)
+    async with sched:                      # or sched.start()/await sched.stop()
         text = await sched.submit(window)  # (C, T) float32 -> str
+
+Wire into the websocket service with :class:`BatchingDecodePipeline`,
+which keeps the per-session windower/wake-gate and awaits the shared
+scheduler for the decode itself.
+
+A copy of ``imagined_speech_translation_tpu.runtime.batcher`` (the port
+imports nothing of the JAX package); ``tests/test_torch_config.py`` and
+``tests/test_torch_runtime.py`` hold the copy to the original.
 """
 
 from __future__ import annotations
 
 import asyncio
-import statistics
+import logging
 import time
 from collections import deque
-from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
 
+from .streaming import LatencyStats, Windower
 
-@dataclass
-class LatencyStats:
-    """Bounded latency telemetry: percentiles over the most recent
-    ``window`` samples, cumulative ``count`` over the process lifetime (a
-    server-lifetime pipeline must not grow or re-sort an unbounded
-    history on every ``latency¬`` control query)."""
-
-    window: int = 10_000
-    samples_ms: "deque[float]" = None  # type: ignore[assignment]
-    total: int = 0
-
-    def __post_init__(self):
-        if self.samples_ms is None:
-            self.samples_ms = deque(maxlen=self.window)
-
-    def record(self, seconds: float) -> None:
-        self.total += 1
-        self.samples_ms.append(seconds * 1e3)
-
-    def summary(self) -> dict:
-        if not self.samples_ms:
-            return {"count": 0, "p50_ms": None, "p95_ms": None, "mean_ms": None}
-        ordered = sorted(self.samples_ms)
-        return {
-            "count": self.total,
-            "p50_ms": statistics.median(ordered),
-            "p95_ms": ordered[min(len(ordered) - 1, int(0.95 * len(ordered)))],
-            "mean_ms": statistics.fmean(ordered),
-        }
+logger = logging.getLogger(__name__)
 
 
 class BatchScheduler:
@@ -212,3 +203,47 @@ class BatchScheduler:
             float(np.mean(self.fills)) if self.fills else None
         )
         return s
+
+
+class BatchingDecodePipeline:
+    """Per-session windower/wake-gate feeding the SHARED scheduler.
+
+    Async drop-in for :class:`~.streaming.DecodePipeline` where decode
+    capacity is pooled across sessions: ``feed``/``flush`` are coroutines
+    returning decoded utterances for THIS session's windows, in order.
+    """
+
+    def __init__(
+        self,
+        *,
+        windower: Windower,
+        scheduler: BatchScheduler,
+        wake_gate: Callable[[np.ndarray], bool] | None = None,
+    ):
+        self.windower = windower
+        self.scheduler = scheduler
+        self.wake_gate = wake_gate or (lambda w: True)
+
+    async def feed(self, samples: np.ndarray) -> list[str]:
+        self.windower.ring.push(samples)
+        gated = [w for w in self.windower.poll() if self.wake_gate(w)]
+        if not gated:
+            return []
+        results = await asyncio.gather(
+            *(self.scheduler.submit(w) for w in gated),
+            return_exceptions=True,
+        )
+        # deliver every window that DID decode; only fail the call when
+        # nothing came back (one bad batch must not discard sibling
+        # windows' successfully decoded text)
+        texts = [r for r in results if isinstance(r, str)]
+        failures = [r for r in results if isinstance(r, BaseException)]
+        if failures and not texts:
+            raise failures[0]
+        for f in failures:
+            logger.warning("window decode failed: %s", f)
+        return texts
+
+    async def flush(self) -> list[str]:
+        """Windowing is hop-driven; nothing buffers session-side."""
+        return []
