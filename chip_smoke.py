@@ -97,14 +97,29 @@ Phases, each failing loudly (non-zero exit, no final line):
    before and after one forced recycle; a second round of 16 new sessions
    gives the same utterances.  Windows/s through the service and
    window-to-utterance p50 and p99 of both rounds, the child's start
-   seconds and RSS.
+   seconds and RSS;
+13. graft: the pretrained-decoder path at full width on the trainer's
+   corpus: a seeded HF-layout checkpoint at ``fnlp/bart-base-chinese``'s
+   widths written as ``pytorch_model.bin`` and ``model.safetensors``, both
+   converted by ``cli.convert_hf`` (equal bit for bit), grafted into a
+   fresh state whose tokenizer is smaller (overlap copy, in place, other
+   parameters untouched, moved by the optimizer's second step),
+   ``build_bart_generate_fn`` on the grafted decoder (beam 3 and greedy,
+   ids equal to a search without the cross-attention hoist), and
+   ``cli.train --bart-params`` for one epoch (finite metrics, exact launch
+   counts);
+14. feed: ``data.feed.device_prefetch`` over the trainer's corpus, batches
+   bit-equal to the host's, copies on a side stream, batches/s beside a
+   plain ``.to`` loop;
+15. features: ``SignalFrontend.features`` on (16, 125, 1651) against the
+   CPU plain path, one IIR launch a call, ms a call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
-bf16 and f32 training paths, the profile-train path, the trainer path and
-the server path (and, for the flash forward and the fused backward, the
-variants their checks ran), and the one before that the card's name and
-power limit.
+bf16 and f32 training paths, the profile-train path, the trainer path, the
+server path, the graft path (``cli.train --bart-params``) and the features
+path (and, for the flash forward and the fused backward, the variants their
+checks ran), and the one before that the card's name and power limit.
 ``dropout_mask`` is a check-only probe: the mask it writes is the
 ``__device__`` function every flash launch with dropout evaluates, so its
 own launch count is 0 on every path.  Imports nothing of JAX.
@@ -1896,10 +1911,435 @@ def phase_server(smi: str, tmp):
     return launches
 
 
+# the graft phase's tokenizer has bert-base-chinese's 21128 tokens, fewer
+# than the checkpoint's 51271, so the vocabulary rows are overlap-copied
+GRAFT_VOCAB = 21128
+
+
+def seeded_hf_bart(bart_cfg, seed: int = 0) -> dict:
+    """A ``BartForConditionalGeneration`` state dict under HF's names at
+    ``bart_cfg``'s widths, random values from ``seed``: weights and biases
+    N(0, 0.02^2), LayerNorm scales 1 + N(0, 0.02^2), a nonzero
+    ``final_logits_bias`` of shape (1, V), and two encoder tensors for the
+    converter to drop."""
+    import torch
+
+    from imagined_speech_translation_tpu_torch.models.hf_convert import LAYER_PARTS
+
+    g = torch.Generator().manual_seed(seed)
+    d, f, v = bart_cfg.d_model, bart_cfg.ffn_dim, bart_cfg.vocab_size
+    positions = bart_cfg.max_position_embeddings + bart_cfg.position_offset
+
+    def normal(*shape, mean=0.0):
+        return torch.randn(shape, generator=g) * 0.02 + mean
+
+    def shape_of(part):
+        name, w = part.rsplit(".", 1)
+        if name == "fc1":
+            return (f, d) if w == "weight" else (f,)
+        if name == "fc2":
+            return (d, f) if w == "weight" else (d,)
+        return (d, d) if w == "weight" and name.endswith("proj") else (d,)
+
+    sd = {"model.shared.weight": normal(v, d),
+          "model.decoder.embed_positions.weight": normal(positions, d),
+          "model.decoder.layernorm_embedding.weight": normal(d, mean=1.0),
+          "model.decoder.layernorm_embedding.bias": normal(d),
+          "model.encoder.embed_positions.weight": normal(positions, d),
+          "model.encoder.layers.0.fc1.weight": normal(f, d),
+          "final_logits_bias": normal(1, v)}
+    for i in range(bart_cfg.decoder_layers):
+        for part in LAYER_PARTS:
+            sd[f"model.decoder.layers.{i}.{part}"] = normal(
+                *shape_of(part), mean=1.0 if part.endswith("norm.weight") else 0.0)
+    return sd
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """Float32 CPU ``tensors`` as a ``.safetensors`` file: an 8-byte
+    little-endian header length, a JSON header padded to 8 bytes, then the
+    raw buffers in order."""
+    import struct
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 4
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(raw)))
+        fh.write(raw)
+        for t in tensors.values():
+            fh.write(t.contiguous().numpy().tobytes())
+
+
+def phase_graft(smi: str, tmp):
+    """13. The pretrained-decoder path at full width, in the trainer phase's
+    scratch directory (its corpus and montage).  (a) A seeded HF-layout
+    checkpoint at ``fnlp/bart-base-chinese``'s widths (vocab 51271, d 768, 6
+    decoder layers, 12 heads, ffn 3072, 512 + 2 positions; ~0.4 GB float32),
+    written as ``pytorch_model.bin`` and, by hand, as ``model.safetensors``;
+    (b) ``cli.convert_hf.main`` on each: the two outputs equal bit for bit
+    and equal the checkpoint's decoder tensors, the encoder dropped; (c)
+    ``graft_bart_params`` into a fresh ``EEGTrainer.init_state`` whose
+    tokenizer has 21128 tokens: the vocabulary rows are overlap-copied,
+    every ``bart.*`` parameter holds the checkpoint's values (its first
+    rows), every other parameter its fresh value, each in the tensor the
+    optimizer was built over; then two optimizer steps (5 flash forward and
+    5 fused backward launches a micro-step): the first, at learning rate 0,
+    leaves the grafted values, the second moves them; (e)
+    ``build_bart_generate_fn`` on that grafted decoder in float32 at B = 16,
+    beam 3 and greedy, on seeded random encoder states (S = 6) with one
+    position masked: ids equal a search that recomputes cross-attention
+    every step (no ``cross_kvs``); ms a call; (d) ``cli.train --bart-params``
+    for one epoch (2 windows, an evaluation, the test evaluation, no epoch
+    checkpoint) with wandb disabled: finite metrics, a decoder weight near
+    the checkpoint's, 5 flash forward and 5 fused backward launches a
+    micro-step and 10 flash forward an evaluation batch.  Returns (d)'s
+    launches."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import convert_hf
+    from imagined_speech_translation_tpu_torch.cli import train as train_cli
+    from imagined_speech_translation_tpu_torch.cli.profile_slice import synthetic_vocab
+    from imagined_speech_translation_tpu_torch.config import default_config, replace_nested
+    from imagined_speech_translation_tpu_torch.data import (
+        ChineseCharTokenizer,
+        EEGTextDataset,
+        split_indices,
+    )
+    from imagined_speech_translation_tpu_torch.decode import (
+        DecodeParams,
+        beam_search,
+        build_bart_generate_fn,
+        greedy_search,
+    )
+    from imagined_speech_translation_tpu_torch.training import EEGTrainer
+    from imagined_speech_translation_tpu_torch.training.pretrained import graft_bart_params
+    from imagined_speech_translation_tpu_torch.training.trainer import window_generator
+
+    t_phase = time.perf_counter()
+    cfg = default_config()
+    bart_cfg = cfg.model.bart
+    work = tmp / "graft"
+    (work / "bin").mkdir(parents=True)
+    (work / "st").mkdir()
+    # (a) the checkpoint in both formats
+    t0 = time.perf_counter()
+    hf = seeded_hf_bart(bart_cfg, seed=0)
+    torch.save(hf, work / "bin" / "pytorch_model.bin")
+    write_safetensors(work / "st" / "model.safetensors", hf)
+    nbytes = (work / "st" / "model.safetensors").stat().st_size
+    log(f"[graft] (a) seeded HF-layout checkpoint: {len(hf)} tensors, "
+        f"{sum(t.numel() for t in hf.values()) / 1e6:.1f}M values, {nbytes / 1e9:.3f} GB, "
+        f"written as .bin and .safetensors in {time.perf_counter() - t0:.1f} s")
+    # (b) both conversions
+    outs = {}
+    for fmt in ("bin", "st"):
+        t0 = time.perf_counter()
+        convert_hf.main(["--checkpoint", str(work / fmt), "--out", str(work / f"{fmt}.pt")])
+        outs[fmt] = torch.load(work / f"{fmt}.pt", weights_only=True)
+        log(f"[graft] (b) cli.convert_hf of the {fmt} file: {len(outs[fmt])} tensors in "
+            f"{time.perf_counter() - t0:.1f} s")
+    conv = outs["st"]
+    if set(conv) != set(outs["bin"]) or any(
+            conv[k].dtype != outs["bin"][k].dtype or not torch.equal(conv[k], outs["bin"][k])
+            for k in conv):
+        raise AssertionError("the .safetensors and .bin conversions differ")
+    last = bart_cfg.decoder_layers - 1
+    for ours, theirs in (("shared.weight", "model.shared.weight"),
+                         (f"layer{last}.fc2.weight", f"model.decoder.layers.{last}.fc2.weight"),
+                         ("embed_positions", "model.decoder.embed_positions.weight")):
+        if not torch.equal(conv[ours], hf[theirs]):
+            raise AssertionError(f"converted {ours} differs from the checkpoint's {theirs}")
+    if not torch.equal(conv["final_logits_bias"], hf["final_logits_bias"][0]) or any(
+            "encoder." in k for k in conv):
+        raise AssertionError("final_logits_bias or the dropped encoder converted wrongly")
+    log(f"[graft] (b) the two conversions are equal bit for bit ({len(conv)} tensors), "
+        f"the encoder dropped, spot tensors equal the checkpoint's")
+    del hf, outs
+
+    # (c) the graft through the library
+    (work / "vocab.txt").write_text("\n".join(synthetic_vocab(GRAFT_VOCAB)) + "\n",
+                                    encoding="utf-8")
+    tok = ChineseCharTokenizer.from_vocab_file(work / "vocab.txt")
+    gcfg = replace_nested(cfg, "model.bart.vocab_size", tok.vocab_size)
+    tc = gcfg.training
+    ds = EEGTextDataset(str(tmp / "data"), str(tmp / "montage.csv"), tok, gcfg.data,
+                        augment=False, seed=tc.seed)
+    train_idx, val_idx, _ = split_indices(
+        len(ds), (gcfg.data.train_split, gcfg.data.val_split, gcfg.data.test_split), tc.seed)
+    trainer = EEGTrainer(gcfg, ds, tok, bow_indices=train_cli.corpus_bow_indices(
+        ds, train_idx, tok, tc.loss.bow_vocab_size), train_indices=train_idx,
+        val_indices=val_idx, checkpoint_dir=str(work / "ckpt"), device="cuda")
+    t0 = time.perf_counter()
+    state = trainer.init_state(tc.seed)
+    params = dict(state.module.named_parameters())
+    fresh = {k: p.detach().clone() for k, p in params.items()}
+    graft_bart_params(state, work / "st.pt")
+    torch.cuda.synchronize()
+    t_graft = time.perf_counter() - t0
+    overlap, n_bart = 0, 0
+    for k, p in state.module.named_parameters():
+        if p is not params[k]:
+            raise AssertionError(f"{k} is a new tensor: the optimizer would step the old one")
+        if k.startswith("model.bart."):
+            src = conv[k[len("model.bart."):]].to(p.device)
+            n = min(src.shape[0], p.shape[0])
+            if not torch.equal(p[:n], src[:n]) or not torch.equal(p[n:], fresh[k][n:]):
+                raise AssertionError(f"{k}: not the checkpoint's first {n} rows")
+            overlap += src.shape != p.shape
+            n_bart += 1
+        elif not torch.equal(p, fresh[k]):
+            raise AssertionError(f"{k} changed: the graft touches only model.bart.*")
+    if overlap != 2:  # shared.weight and final_logits_bias
+        raise AssertionError(f"{overlap} tensors overlap-copied, want 2")
+    grafted = {k: p.detach().clone() for k, p in params.items() if k.startswith("model.bart.")}
+    log(f"[graft] (c) init_state + graft in {t_graft:.1f} s: {n_bart} bart tensors from the "
+        f"checkpoint ({overlap} overlap-copied, {bart_cfg.vocab_size} -> {tok.vocab_size} "
+        f"rows), {len(params) - n_bart} others at their fresh values, all in place")
+    micro = tc.grad_accum_steps
+    batches = trainer._train_batches(0)
+    for i in range(2):
+        _kernels.reset_launch_counts()
+        state, metrics = trainer._train_step(state, trainer._to_device(next(batches)),
+                                             window_generator(tc.seed, 0, i))
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        if (launches["flash_fwd"], launches["flash_bwd"]) != (5 * micro, 5 * micro):
+            raise AssertionError(f"(c) step {i} launched {launches}")
+        loss = float(metrics["loss"])
+        moved = sum(not torch.equal(params[k], v) for k, v in grafted.items())
+        if not np.isfinite(loss) or (moved != 0 if i == 0 else moved < n_bart // 2):
+            raise AssertionError(f"(c) step {i}: loss {loss}, {moved} bart tensors moved")
+        log(f"[graft] (c) step {i}: loss {loss:.4f}, {moved} of {n_bart} grafted tensors "
+            f"moved, launches {launches}")
+    decoder = state.module.model.bart
+
+    # (e) generation from encoder states on the grafted decoder
+    rng = np.random.default_rng(0)
+    enc = torch.from_numpy(rng.normal(size=(16, 6, bart_cfg.d_model)).astype(np.float32)).cuda()
+    mask = torch.ones((16, 6), dtype=torch.int32, device="cuda")
+    mask[:, 4] = 0
+    for k in (3, 1):
+        dp = DecodeParams(max_length=16, min_length=4, num_beams=k,
+                          pad_token_id=tok.pad_token_id, eos_token_id=tok.sep_token_id,
+                          decoder_start_token_id=tok.bos_token_id)
+        gen = build_bart_generate_fn(decoder, dp)
+        enc_x, mask_x = enc.repeat_interleave(k, 0), mask.repeat_interleave(k, 0)
+        search = beam_search if k > 1 else greedy_search
+
+        @torch.inference_mode()
+        def unhoisted():
+            return search(lambda t, pos, c: decoder(t, enc_x, mask_x, positions=pos, caches=c),
+                          decoder.init_cache(16 * k, 16, device="cuda"), 16, dp, device="cuda")
+
+        ids = gen(enc, mask)
+        if ids.shape != (16, 16) or not torch.equal(ids, unhoisted()):
+            raise AssertionError(f"(e) beam {k}: hoisted ids differ from the plain search's")
+        ms, ms_plain = cuda_ms(lambda: gen(enc, mask), 3, 1), cuda_ms(unhoisted, 3, 1)
+        log(f"[graft] (e) build_bart_generate_fn {'beam 3' if k > 1 else 'greedy'}, B = 16, "
+            f"S = 6 with one position masked, f32: ids equal the search without cross_kvs "
+            f"({len(set(ids.flatten().tolist()))} distinct ids); {ms:.1f} ms a call, "
+            f"{ms_plain:.1f} ms without the hoist, on {smi}")
+    del state, params, fresh, grafted, decoder, trainer, metrics, batches
+    torch.cuda.empty_cache()
+
+    # (d) the entry point
+    wandb_mode = os.environ.get("WANDB_MODE")
+    os.environ["WANDB_MODE"] = "disabled"
+    try:
+        args = ["--data-dir", str(tmp / "data"), "--montage", str(tmp / "montage.csv"),
+                "--vocab", str(work / "vocab.txt"), "--device", "cuda",
+                "--out-dir", str(work / "out"), "--bart-params", str(work / "st.pt")]
+        for s in ("training.num_epochs=1", "training.eval_interval_epochs=1",
+                  "training.checkpoint.save_interval_epochs=100"):
+            args += ["--set", s]
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_cli.main(args)
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        t_d = time.perf_counter() - t0
+    finally:
+        if wandb_mode is None:
+            os.environ.pop("WANDB_MODE", None)
+        else:
+            os.environ["WANDB_MODE"] = wandb_mode
+    # 1 epoch of 2 windows; the validation and the test evaluation, 1 batch each
+    want = dict(sosfilt=0, flash_fwd=5 * micro * 2 + 10 * 2, flash_bwd=5 * micro * 2,
+                flash_bwd_dq=0, flash_bwd_dkv=0, dropout_mask=0)
+    if launches != want or res["state"].step != 2:
+        raise AssertionError(f"(d) launched {launches} (want {want}), step {res['state'].step}")
+    rows = [json.loads(line) for line in (work / "out" / "metrics.jsonl").open()]
+    numbers = sum(_finite_numbers(r, f"(d) metrics.jsonl line {i}") for i, r in enumerate(rows))
+    _finite_numbers(res["test_metrics"], "(d) test metrics")
+    w = res["state"].module.model.bart.get_parameter(f"layer{last}.fc1.weight").detach()
+    to_ckpt = (w - conv[f"layer{last}.fc1.weight"].cuda()).abs().max().item()
+    if not to_ckpt < 1e-2:  # two AdamW steps from the grafted weights
+        raise AssertionError(f"(d) layer{last}.fc1 lies {to_ckpt} from the checkpoint's")
+    losses = [round(r["train/loss"], 4) for r in rows if "train/loss" in r]
+    sps = [round(r["train/samples_per_sec"], 2) for r in rows if "train/samples_per_sec" in r]
+    log(f"[graft] (d) cli.train --bart-params, 1 epoch: {t_d:.1f} s, train/loss {losses}, "
+        f"train/samples_per_sec {sps}, {numbers} logged numbers all finite, test val_loss "
+        f"{res['test_metrics']['val_loss']:.4f}, layer{last}.fc1 within {to_ckpt:.2e} of the "
+        f"checkpoint's, launches {launches}")
+    log(f"[graft] phase {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
+def phase_feed(smi: str, tmp):
+    """14. The device feed on the trainer phase's corpus (80 windows, plain,
+    batches of 16): ``device_prefetch(size=2)`` over ``threaded_producer``
+    of ``batch_iterator``; each device batch equals its host batch bit for
+    bit, and every host -> device copy ran on a stream other than the
+    default one.  Then batches/s of the prefetch against a plain
+    ``.to("cuda")`` loop over the same host batches (each consumed by a
+    reduction on the card), in turns (plain, prefetch, prefetch, plain): a
+    number of this card's, no claim."""
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch.config import default_config
+    from imagined_speech_translation_tpu_torch.data import (
+        ChineseCharTokenizer,
+        EEGTextDataset,
+        batch_iterator,
+        device_prefetch,
+        threaded_producer,
+    )
+
+    cfg = default_config()
+    tok = ChineseCharTokenizer.from_vocab_file(tmp / "vocab.txt")
+    ds = EEGTextDataset(str(tmp / "data"), str(tmp / "montage.csv"), tok, cfg.data,
+                        augment=False, seed=cfg.training.seed)
+    idx = np.arange(len(ds))
+    host = list(batch_iterator(ds, idx, 16))
+    streams, to = [], torch.Tensor.to
+
+    def recording_to(self, *a, **kw):
+        out = to(self, *a, **kw)
+        if out.is_cuda and not self.is_cuda:
+            streams.append(torch.cuda.current_stream().stream_id)
+        return out
+
+    torch.Tensor.to = recording_to
+    try:
+        fed = [{k: v.cpu() for k, v in b.items()} for b in device_prefetch(
+            threaded_producer(lambda: batch_iterator(ds, idx, 16)), size=2)]
+        torch.cuda.synchronize()
+    finally:
+        torch.Tensor.to = to
+    default = torch.cuda.default_stream().stream_id
+    if not streams or default in streams:
+        raise AssertionError(f"copies on streams {sorted(set(streams))}, default {default}")
+    if len(fed) != len(host):
+        raise AssertionError(f"{len(fed)} batches fed, {len(host)} made")
+    for i, (f, h) in enumerate(zip(fed, host)):
+        if set(f) != set(h) or any(not np.array_equal(f[k].numpy(), h[k]) or
+                                   f[k].numpy().dtype != h[k].dtype for k in h):
+            raise AssertionError(f"fed batch {i} differs from its host batch")
+    nbytes = sum(v.nbytes for v in host[0].values())
+    log(f"[feed] {len(fed)} batches of 16 windows ({nbytes / 1e6:.2f} MB each) through "
+        f"device_prefetch(size=2): bit-equal to the host batches; {len(streams)} copies on "
+        f"stream {sorted(set(streams))}, not the default {default}")
+
+    many = host * 8
+
+    def prefetch():
+        for b in device_prefetch(iter(many), size=2):
+            b["eeg"].sum()
+        torch.cuda.synchronize()
+
+    def plain():
+        for h in many:
+            {k: torch.from_numpy(v).to("cuda") for k, v in h.items()}["eeg"].sum()
+        torch.cuda.synchronize()
+
+    prefetch(), plain()  # warm-up
+    rates = {"plain": [], "prefetch": []}
+    for name, fn in (("plain", plain), ("prefetch", prefetch), ("prefetch", prefetch),
+                     ("plain", plain)):
+        t0 = time.perf_counter()
+        fn()
+        rates[name].append(len(many) / (time.perf_counter() - t0))
+    log(f"[feed] batches/s over {len(many)} batches (plain, prefetch, prefetch, plain turns) "
+        f"on {smi}: device_prefetch {[round(r, 1) for r in rates['prefetch']]}, plain .to "
+        f"{[round(r, 1) for r in rates['plain']]}")
+
+
+def phase_features(smi: str):
+    """15. ``SignalFrontend.features`` (the IIR kernel, CAR, the STFT
+    log-spectrogram) on (16, 125, 1651) float32 on the card, against the CPU
+    plain path (the IIR's sequential twin, the same STFT): exactly 1
+    ``sosfilt`` launch a call; the filtered signals within the IIR's bound,
+    2e-4 x max |x|; each log-power within the interval that their measured
+    difference dy implies, [log(max(|X| - dX, 0)^2 + eps), log((|X| + dX)^2
+    + eps)] with dX = sum|w| x (dy + 1e-6 x max|y|) and X the CPU path's STFT
+    in float64; ms a call."""
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.config import default_config
+    from imagined_speech_translation_tpu_torch.frontend import SignalFrontend, stft_magnitude
+    from imagined_speech_translation_tpu_torch.frontend.stft import get_window
+
+    fe = SignalFrontend(default_config().frontend)
+    c = fe.cfg
+    x_host = (np.random.default_rng(0).normal(size=(16, 125, 1651)) * 20.0).astype(np.float32)
+    x = torch.from_numpy(x_host).cuda()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    feats = fe.features(x)
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    if launches != {**{k: 0 for k in launches}, "sosfilt": 1}:
+        raise AssertionError(f"features launched {launches}, want 1 sosfilt")
+    y = fe.preprocess(x).cpu()
+    x_cpu = torch.from_numpy(x_host)
+    t0 = time.perf_counter()
+    feats_cpu = fe.features(x_cpu)
+    plain_s = time.perf_counter() - t0
+    y_cpu = fe.preprocess(x_cpu)
+    scale, top_y = float(np.abs(x_host).max()), y_cpu.abs().max().item()
+    dy = (y - y_cpu).abs().max().item()
+    if feats.shape != feats_cpu.shape or dy > 2e-4 * scale:
+        raise AssertionError(f"features {tuple(feats.shape)}, filtered max |err| {dy} "
+                             f"against 2e-4 x {scale}")
+    ref = stft_magnitude(y_cpu.double(), nperseg=c.stft_nperseg, hop=c.stft_hop,
+                         window=c.stft_window).numpy()
+    dx = np.abs(get_window(c.stft_window, c.stft_nperseg)).sum() * (dy + 1e-6 * top_y)
+    lo = np.log(np.maximum(ref - dx, 0.0) ** 2 + c.log_eps)
+    hi = np.log((ref + dx) ** 2 + c.log_eps)
+    got = feats.cpu().double().numpy()
+    bad = (got < lo - 1e-5 * np.abs(lo)) | (got > hi + 1e-5 * np.abs(hi))
+    if bad.any() or not np.isfinite(got).all():
+        raise AssertionError(f"{bad.sum()} of {bad.size} log-power bins outside their interval")
+    narrow = float((hi - lo < 0.05).mean())
+    err = np.abs(got - feats_cpu.double().numpy())
+    ms = cuda_ms(lambda: fe.features(x), 20, 3)
+    log(f"[features] (16, 125, 1651) -> {tuple(feats.shape)}: 1 sosfilt launch a call; "
+        f"filtered max |err| {dy:.3e} (bound {2e-4 * scale:.3e}); every log-power within "
+        f"its interval ({narrow:.3f} of them narrower than 0.05); max |err| of the "
+        f"log-power against the CPU path {err.max():.3e}, median {np.median(err):.3e}; "
+        f"{ms:.3f} ms a call on {smi} (the CPU plain path {plain_s * 1e3:.1f} ms)")
+    return launches
+
+
 def run_trainer_and_server(smi: str):
-    """The trainer phase, then the server phase on its checkpoint, in one
-    scratch directory under ``build/`` that is removed afterwards.  Returns
-    both phases' launches."""
+    """The trainer phase, then the server phase on its checkpoint, then the
+    graft and feed phases on its corpus, in one scratch directory under
+    ``build/`` that is removed afterwards.  Returns the trainer, server and
+    graft phases' launches."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -1909,7 +2349,10 @@ def run_trainer_and_server(smi: str):
     tmp = Path(tempfile.mkdtemp(prefix="trainer_smoke_", dir=build))
     try:
         trainer = timed(phase_trainer, smi, tmp)
-        return trainer, timed(phase_server, smi, tmp)
+        server = timed(phase_server, smi, tmp)
+        graft = timed(phase_graft, smi, tmp)
+        timed(phase_feed, smi, tmp)
+        return trainer, server, graft
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1977,14 +2420,17 @@ def main() -> int:
     timed(phase_train_card_vs_cpu)
     profile_launches = timed(phase_profile_train, smi)
     torch.cuda.empty_cache()
-    trainer_launches, server_launches = run_trainer_and_server(smi)
+    trainer_launches, server_launches, graft_launches = run_trainer_and_server(smi)
+    features_launches = timed(phase_features, smi)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(summary(checks, {"serving": serve_launches, "training": train_launches,
                                     "training_f32": train_f32_launches,
                                     "profile_train": profile_launches,
                                     "trainer": trainer_launches,
-                                    "server": server_launches})))
+                                    "server": server_launches,
+                                    "graft": graft_launches,
+                                    "features": features_launches})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -24,13 +24,13 @@ from pathlib import Path
 from ..config import replace_nested
 from ..data import ChineseCharTokenizer, EEGTextDataset, split_indices
 from ..training import EEGTrainer
-from .train import NO_BART_PARAMS, check_device, corpus_bow_indices, load_config
+from .train import check_device, corpus_bow_indices, load_config
 
 logger = logging.getLogger(__name__)
 
 
 def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0], epilog=NO_BART_PARAMS)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--data-dir", required=True)
     ap.add_argument("--montage", required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",

@@ -7,12 +7,16 @@ resumes with ``--resume``::
 
     python -m imagined_speech_translation_tpu_torch.cli.train \\
         --data-dir data/eeg_data --montage data/montage.csv \\
-        --vocab vocab.txt [--config cfg.json] [--set training.seed=7] ...
+        --vocab vocab.txt [--config cfg.json] [--set training.seed=7] \\
+        [--bart-params bart_params.pt] ...
 
-It trains on the CUDA card, or on the CPU with ``--device cpu``; it never
-falls back from one to the other.  The JAX script's ``--bart-params`` (the
-pretrained BART decoder graft) and its persistent compile cache are not
-ported.
+``--bart-params FILE`` reads the file that ``cli.convert_hf`` writes (the
+converted HF BART decoder, e.g. ``fnlp/bart-base-chinese``, the reference's
+fine-tune setup) and grafts it into the fresh state's decoder in place
+(``training.pretrained.graft_bart_params``), before ``--resume``, so a
+resumed checkpoint overrides it.  It trains on the CUDA card, or on the CPU
+with ``--device cpu``; it never falls back from one to the other.  The JAX
+script's persistent compile cache is not ported.
 """
 
 from __future__ import annotations
@@ -27,13 +31,11 @@ import torch
 from ..config import Config, default_config, replace_nested
 from ..data import ChineseCharTokenizer, EEGTextDataset, split_indices
 from ..training import EEGTrainer, get_top_k_vocab_indices
+from ..training.pretrained import graft_bart_params
 from ..utils import seed_everything
 from ..utils.metrics import get_logger
 
 logger = logging.getLogger(__name__)
-
-NO_BART_PARAMS = ("--bart-params (the pretrained BART decoder graft) is not ported yet: the "
-                  "decoder starts from random weights")
 
 
 def parse_override(cfg: Config, expr: str) -> Config:
@@ -74,7 +76,7 @@ def corpus_bow_indices(dataset, train_idx, tokenizer, k: int) -> list[int]:
 def main(argv=None) -> dict:
     """Runs the script; returns ``best_bleu4``, the final ``test_metrics``,
     the ``trainer`` and its last ``state``."""
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0], epilog=NO_BART_PARAMS)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--data-dir", required=True)
     ap.add_argument("--montage", required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -85,6 +87,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--out-dir", default="runs/latest")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--no-augment", action="store_true")
+    ap.add_argument(
+        "--bart-params", default=None,
+        help="file written by cli.convert_hf: initialize the decoder from the pretrained"
+             " weights (e.g. fnlp/bart-base-chinese, the reference's fine-tune setup)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -132,6 +138,8 @@ def main(argv=None) -> dict:
         device=device,
     )
     state = trainer.init_state(seed)
+    if args.bart_params:
+        state = graft_bart_params(state, args.bart_params)
     if args.resume:
         state = trainer.resume(state)
 

@@ -1,8 +1,8 @@
-"""The serving signal chain: bandpass -> notch -> common-average reference.
+"""The signal chain: bandpass -> notch -> common-average reference
+(``preprocess``, the serving path's), then the STFT log-spectrogram
+(``features``).
 
-Port of ``imagined_speech_translation_tpu.frontend.frontend`` (``preprocess``
-and ``common_average_reference``).  The STFT ``features`` are not on the
-serving path and are not ported yet.
+Port of ``imagined_speech_translation_tpu.frontend.frontend``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 from ..config import FrontendConfig
 
 from .filters import design_bandpass, design_notch, sosfilt
+from .stft import log_spectrogram
 
 
 def common_average_reference(x: torch.Tensor, channel_mask=None) -> torch.Tensor:
@@ -29,6 +30,7 @@ class SignalFrontend:
     """Host-designed filters + the fused on-device IIR, then CAR.
 
     ``preprocess``: float32 ``(..., C, T)`` -> filtered, re-referenced signal.
+    ``features``: adds the STFT log-spectrogram -> ``(..., C, F, bins)``.
     """
 
     def __init__(self, cfg: FrontendConfig | None = None):
@@ -46,3 +48,9 @@ class SignalFrontend:
         if self.cfg.car:
             y = common_average_reference(y, channel_mask)
         return y
+
+    def features(self, x: torch.Tensor, channel_mask=None) -> torch.Tensor:
+        y = self.preprocess(x, channel_mask)
+        c = self.cfg
+        return log_spectrogram(y, nperseg=c.stft_nperseg, hop=c.stft_hop,
+                               window=c.stft_window, eps=c.log_eps)

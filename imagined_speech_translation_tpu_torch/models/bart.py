@@ -2,11 +2,16 @@
 
 Port of ``imagined_speech_translation_tpu.models.bart``: shared token
 embedding, learned positions (offset 2), ``layernorm_embedding``, post-norm
-decoder layers, tied lm_head + ``final_logits_bias``.  Incremental decoding
-keeps a fixed-size KV cache per layer (``init_cache``) written in place at
-``index``.  The EEG pseudo-encoder is a tiled sequence, so cross-attention
-over it is the identity on V: ``cross_attn_const`` hoists it out of the decode
-loop as one ``out_proj(v_proj(vec))`` per layer.
+decoder layers, lm_head on the shared embedding (plus ``final_logits_bias``
+when ``tie_word_embeddings``; without it the JAX module has no bias, and
+neither has this one).  Incremental decoding keeps a fixed-size KV cache per
+layer (``init_cache``) written in place at ``index``.  Two loop-invariant
+hoists take cross-attention out of the decode loop: ``cross_attn_kv``
+projects fixed encoder states to per-layer (k, v) once per generate call
+(bit-identical outputs), and, for the EEG pseudo-encoder, which is a tiled
+sequence, ``cross_attn_const`` collapses cross-attention to one
+``out_proj(v_proj(vec))`` per layer, since attention over identical
+positions is the identity on V.
 
 The teacher-forced path also trains: with a ``generator`` the embedding,
 residual and FFN activations drop out at ``cfg.dropout`` and attention
@@ -45,16 +50,19 @@ class _BartAttention(nn.Module):
         b, s, _ = t.shape
         return t.reshape(b, s, self.num_heads, self.d // self.num_heads).transpose(1, 2)
 
+    def kv(self, kv_in):
+        """(k, v) head-split projections of ``kv_in``: loop-invariant for
+        fixed encoder states."""
+        return self._split(self.k_proj(kv_in)), self._split(self.v_proj(kv_in))
+
     def uniform_const(self, vec):
         """Cross-attention output when every key/value position holds ``vec``
         (B, d): softmax weights are uniform, so attention returns v itself."""
         return self.out_proj(self.v_proj(vec))
 
-    def forward(self, x, kv=None, mask=None, *, cache=None, generator=None):
-        kv = x if kv is None else kv
+    def forward(self, x, kv=None, mask=None, *, cache=None, kv_pair=None, generator=None):
         q = self._split(self.q_proj(x))
-        k = self._split(self.k_proj(kv))
-        v = self._split(self.v_proj(kv))
+        k, v = kv_pair if kv_pair is not None else self.kv(x if kv is None else kv)
         if cache is not None:
             idx = cache["index"]
             cache["k"][:, :, idx : idx + k.shape[2]] = k
@@ -83,8 +91,11 @@ class _BartDecoderLayer(nn.Module):
         self.fc2 = nn.Linear(cfg.ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
 
+    def cross_kv(self, encoder_hidden):
+        return self.encoder_attn.kv(encoder_hidden)
+
     def forward(self, x, encoder_hidden, self_mask, cross_mask=None, *, cache=None,
-                cross_const=None, generator=None):
+                cross_kv=None, cross_const=None, generator=None):
         def drop(t):
             return dropout(t, self.dropout, generator)
 
@@ -93,23 +104,24 @@ class _BartDecoderLayer(nn.Module):
         if cross_const is not None:
             a = cross_const[:, None, :]
         else:
-            a = self.encoder_attn(x, kv=encoder_hidden, mask=cross_mask, generator=generator)
+            a = self.encoder_attn(x, kv=encoder_hidden, mask=cross_mask, kv_pair=cross_kv,
+                                  generator=generator)
         x = self.encoder_attn_layer_norm(x + drop(a))
         f = self.fc2(drop(F.gelu(self.fc1(x))))  # BART's exact (erf) GELU
         return self.final_layer_norm(x + drop(f))
 
 
 class BartDecoderModel(nn.Module):
-    """Decoder + tied lm_head.  Full-sequence mode: ``caches=None``, causal
-    mask.  Incremental mode: 1-token inputs with explicit ``positions``,
-    ``caches`` from :meth:`init_cache`, and ``cross_consts`` from
-    :meth:`cross_attn_const`.  With a ``generator`` (train mode) the
-    full-sequence mode applies the JAX module's dropouts."""
+    """Decoder + lm_head on the shared embedding.  Full-sequence mode:
+    ``caches=None``, causal mask.  Incremental mode: 1-token inputs with
+    explicit ``positions``, ``caches`` from :meth:`init_cache`, and either
+    the encoder states (optionally ``cross_kvs`` from :meth:`cross_attn_kv`)
+    or ``cross_consts`` from :meth:`cross_attn_const` (tiled pseudo-encoder
+    only).  With a ``generator`` (train mode) the full-sequence mode applies
+    the JAX module's dropouts."""
 
     def __init__(self, cfg: BartConfig):
         super().__init__()
-        if not cfg.tie_word_embeddings:
-            raise NotImplementedError("only the tied lm_head is ported")
         self.cfg = cfg
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.embed_positions = nn.Parameter(
@@ -118,10 +130,16 @@ class BartDecoderModel(nn.Module):
         self.layernorm_embedding = nn.LayerNorm(cfg.d_model, eps=1e-5)
         for li in range(cfg.decoder_layers):
             self.add_module(f"layer{li}", _BartDecoderLayer(cfg))
-        self.final_logits_bias = nn.Parameter(torch.empty(cfg.vocab_size))
+        if cfg.tie_word_embeddings:
+            self.final_logits_bias = nn.Parameter(torch.empty(cfg.vocab_size))
 
     def layers(self):
         return [getattr(self, f"layer{li}") for li in range(self.cfg.decoder_layers)]
+
+    def cross_attn_kv(self, encoder_hidden):
+        """Per-layer (k, v) cross-attention projections of fixed encoder
+        states ``(B, S, d)``: compute once per generate call."""
+        return [layer.cross_kv(encoder_hidden) for layer in self.layers()]
 
     def cross_attn_const(self, enc_vec):
         """Per-layer constant cross-attention outputs for a TILED
@@ -130,11 +148,11 @@ class BartDecoderModel(nn.Module):
 
     def forward(self, decoder_input_ids, encoder_hidden_states=None,
                 encoder_attention_mask=None, *, positions=None, caches=None,
-                cross_consts=None, generator=None, return_hidden=False):
+                cross_kvs=None, cross_consts=None, generator=None, return_hidden=False):
         cfg = self.cfg
         b, l = decoder_input_ids.shape
-        if encoder_hidden_states is None and cross_consts is None:
-            raise ValueError("need encoder_hidden_states or cross_consts")
+        if encoder_hidden_states is None and cross_kvs is None and cross_consts is None:
+            raise ValueError("need encoder_hidden_states, cross_kvs or cross_consts")
         x = self.shared(decoder_input_ids)
         if cfg.scale_embedding:
             x = x * (cfg.d_model**0.5)
@@ -159,10 +177,13 @@ class BartDecoderModel(nn.Module):
             x = layer(
                 x, encoder_hidden_states, self_mask, cross_mask,
                 cache=None if caches is None else caches[li],
+                cross_kv=None if cross_kvs is None else cross_kvs[li],
                 cross_const=None if cross_consts is None else cross_consts[li],
                 generator=generator,
             )
-        logits = F.linear(x, self.shared.weight) + self.final_logits_bias
+        logits = F.linear(x, self.shared.weight)
+        if cfg.tie_word_embeddings:
+            logits = logits + self.final_logits_bias
         return (logits, x) if return_hidden else logits
 
     def init_cache(self, batch: int, max_length: int, dtype=torch.float32, device=None):

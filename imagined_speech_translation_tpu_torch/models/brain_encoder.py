@@ -183,3 +183,13 @@ class BrainRegionEncoder(nn.Module):
             return {"names": names, "softmax": [0.25] * 4, "has_dynamic": False}
         w = torch.softmax(self.region_importance.detach().float(), dim=0)
         return {"names": names, "softmax": w.tolist(), "has_dynamic": True}
+
+
+def feature_diversity_stats(region_feats: torch.Tensor) -> dict:
+    """Diversity monitoring on per-region features ``(B, R, h)``:
+    diversity = 1 - mean off-diagonal cosine similarity (averaged over the
+    batch)."""
+    x = region_feats / (torch.linalg.vector_norm(region_feats, dim=-1, keepdim=True) + 1e-12)
+    sim = torch.einsum("brh,bsh->brs", x, x).mean(dim=0)
+    off = ~torch.eye(sim.shape[0], dtype=torch.bool, device=sim.device)
+    return {"diversity_score": 1.0 - sim[off].mean(), "region_similarities": sim}
