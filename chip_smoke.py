@@ -112,14 +112,36 @@ Phases, each failing loudly (non-zero exit, no final line):
    bit-equal to the host's, copies on a side stream, batches/s beside a
    plain ``.to`` loop;
 15. features: ``SignalFrontend.features`` on (16, 125, 1651) against the
-   CPU plain path, one IIR launch a call, ms a call.
+   CPU plain path, one IIR launch a call, ms a call;
+16. multi_device: data parallelism on the one card.  The flash forward
+   with dropout 0.1 and the fused backward on one rank's half of a
+   training micro-batch, launched with the global head mapping, equal to
+   the full launch's rows (out, lse, dK, dV bit for bit, dQ within its
+   atomic sums' order) in bf16 and f32, and unequal with the identity
+   mapping; the probe's mapped tiles equal to its twin's.  Then
+   ``cli.train`` at full width in float32 for 1 epoch of 2 optimizer steps
+   with an evaluation and a checkpoint, in one process and as two ranks
+   (``IST_COORDINATOR``, ``IST_NUM_PROCESSES=2``, ``IST_PROCESS_ID``,
+   ``IST_BACKEND=gloo``, ``parallel.data_axis=2``): every step's losses
+   within 2e-4 relative, the final weights by the learning-rate rule, the
+   module and BatchNorm statistics equal on both ranks, the checkpoint
+   written once and restored on both ranks, 5 + 5 flash launches a
+   micro-step on each rank.  Then ``cli.serve.build_decode_fn_from_args``
+   on that checkpoint with two replicas on the card
+   (``devices=["cuda:0", "cuda:0"]``): the single replica's ids on 16
+   windows and behind a ``BatchScheduler``, "not divisible" for 15, 2 IIR
+   and 10 flash forward launches a batch.  Seconds a step, the all-reduce's
+   share, peak memory a rank, windows/s: correctness, not scaling.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
 bf16 and f32 training paths, the profile-train path, the trainer path, the
-server path, the graft path (``cli.train --bart-params``) and the features
-path (and, for the flash forward and the fused backward, the variants their
-checks ran), and the one before that the card's name and power limit.
+server path, the graft path (``cli.train --bart-params``), the features
+path, the data-parallel training path (both ranks' ``cli.train``) and the
+data-parallel serving path (one batch over two replicas) (and, for the
+flash forward and the fused backward, the variants their checks ran and
+the multi_device phase's mapping checks), and the one before that the
+card's name and power limit.
 ``dropout_mask`` is a check-only probe: the mask it writes is the
 ``__device__`` function every flash launch with dropout evaluates, so its
 own launch count is 0 on every path.  Imports nothing of JAX.
@@ -2335,14 +2357,504 @@ def phase_features(smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. multi_device: data parallelism (two ranks, two replicas, one card)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_SETS = ("training.num_epochs=1", "training.eval_interval_epochs=1",
+           "training.checkpoint.save_interval_epochs=1", "training.checkpoint.max_to_keep=1",
+           "training.mixed_precision=false", "training.log_every_steps=1")
+DP_STEP_RTOL = 2e-4  # the JAX test's bound (tests/test_parallel.py)
+DP_DQ_F32_REL = 1e-5  # dQ's f32 atomic sums in another order, relative to max |dQ|
+
+
+def beyond_one_ulp(a, b, top: float) -> float:
+    """max(|a - b| - one unit in the last place of a's dtype at the larger
+    magnitude, 0) / ``top``: what a difference leaves after a rounding of
+    the same f32 value to a's dtype could flip its last bit."""
+    import torch
+
+    x = torch.maximum(a.float().abs(), b.float().abs()).clamp_min(2.0 ** -126)
+    mantissa = {torch.bfloat16: 7, torch.float32: 23}[a.dtype]  # explicit bits
+    ulp = torch.exp2(torch.floor(torch.log2(x)) - mantissa)
+    return ((a.float() - b.float()).abs() - ulp).clamp_min(0.0).max().item() / top
+
+
+def multi_device_kernels():
+    """The flash forward with dropout 0.1 and the fused backward at the
+    training shapes ((4 regions x 4 rows) x 6 heads x 1655 x 128 and x 3
+    heads x 256), in bf16 and f32: each rank's half of the micro-batch,
+    launched with the global head mapping (``dropout_rows = (2, 4, 2r)``),
+    must give the full launch's rows of out, lse, dK and dV bit for bit, and
+    dQ within ``DP_DQ_F32_REL`` x max |dQ| beyond one unit in the last
+    place of its dtype: dQ is summed in f32 by atomic reductions in no fixed
+    order, so even two full launches differ there, and in bf16 the cast of
+    such sums can flip a last bit;
+    the same launches with the identity mapping must not.  The probe writes
+    mapped tiles equal to its plain twin's and to the full launch's tile of
+    the global head."""
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch.ops import flash_attention, tile_keep_mask
+    from imagined_speech_translation_tpu_torch.ops.dropout_mask import (
+        dropout_blocks,
+        global_head,
+        tile_keep_mask_reference,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    rate, seed, S, R, B, rows = 0.1, 4321, 1655, 4, 4, 2
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
+    results = []
+
+    def run(q, k, v, dout, dropout_rows):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out, lse = flash_attention(q, k, v, dropout_rows=dropout_rows, **kw)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        return dict(out=out.detach(), lse=lse.reshape(q.shape[0], q.shape[1], S), dq=dq, dk=dk,
+                    dv=dv)
+
+    def half(t, r):
+        """Rank r's rows of a (R * B, ...) tensor, region-major."""
+        return t.unflatten(0, (R, B))[:, r * rows:(r + 1) * rows].flatten(0, 1).contiguous()
+
+    for heads, d in ((6, 128), (3, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            shape = (R * B, heads, S, d)
+            q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3)
+                       .to(dev, dtype) for _ in range(3))
+            dout = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+            full = run(q, k, v, dout, None)
+            again = run(q, k, v, dout, None)
+            dq_spread = (full["dq"].float() - again["dq"].float()).abs().max().item()
+            dq_top = full["dq"].float().abs().max().item()
+            for r in range(DP_RANKS):
+                args = [half(t, r) for t in (q, k, v, dout)]
+                want = {key: half(t, r) for key, t in full.items()}
+                mapped = run(*args, (rows, B, r * rows))
+                identity = run(*args, None)
+                bits = {key: torch.equal(mapped[key], want[key]) for key in want}
+                dq_rel = (mapped["dq"].float() - want["dq"].float()).abs().max().item() / dq_top
+                dq_excess = beyond_one_ulp(mapped["dq"], want["dq"], dq_top)
+                off = {key: (identity[key].float() - want[key].float()).abs().max().item()
+                       / max(want[key].float().abs().max().item(), 1e-30)
+                       for key in ("out", "dq", "dk", "dv")}
+                row = dict(shape=[R * rows * heads, S, d], dtype=name, rank=r,
+                           equal_bits={key: bits[key] for key in ("out", "lse", "dk", "dv")},
+                           dq_bits=bits["dq"], dq_rel_err=dq_rel, dq_rel_beyond_one_ulp=dq_excess,
+                           dq_bound=DP_DQ_F32_REL,
+                           dq_rel_spread_two_full_launches=dq_spread / dq_top,
+                           identity_rel_err=off)
+                results.append(row)
+                log(f"[multi_device] kernels {name} ({R}x{rows}x{heads}, {S}, {d}) rank {r}: "
+                    f"mapped out/lse/dK/dV bit-equal to the full launch's rows "
+                    f"{row['equal_bits']}, dQ bits {bits['dq']}, dQ rel err {dq_rel:.2e}, "
+                    f"{dq_excess:.2e} beyond one ulp (bound {DP_DQ_F32_REL:.0e}; two full "
+                    f"launches differ by {dq_spread / dq_top:.2e}); identity mapping rel err "
+                    f"{ {key: f'{x:.3f}' for key, x in off.items()} }")
+                if not all(row["equal_bits"].values()) or dq_excess > DP_DQ_F32_REL:
+                    raise AssertionError(f"mapped launch differs from the full rows: {row}")
+                if min(off.values()) <= 1e-2 or identity["out"].equal(want["out"]):
+                    raise AssertionError(f"identity mapping matches the full rows: {row}")
+            del full, again, q, k, v, dout
+
+    # the probe: mapped tiles of rank 1 against the plain twin and the full
+    # launch's tile of the global head
+    mismatches = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        bq, bk = dropout_blocks(R * B * 6, S, S, dtype)
+        for bh in (0, 7, 13, R * rows * 6 - 1):
+            for qi, ki in ((0, 0), (1, 2), (-(-S // bq) - 1, -(-S // bk) - 1)):
+                mk = dict(block_q=bq, block_k=bk, rate=rate)
+                got = tile_keep_mask(seed, bh, qi, ki, **mk, device=dev, rows=(rows, B, rows),
+                                     heads=6)
+                plain = tile_keep_mask_reference(seed, bh, qi, ki, **mk, device=dev,
+                                                 rows=(rows, B, rows), heads=6)
+                gh = global_head(bh, (rows, B, rows), 6)
+                whole = tile_keep_mask(seed, gh, qi, ki, **mk, device=dev)
+                mismatches += int((got != plain).sum()) + int((got != whole).sum())
+    log(f"[multi_device] probe: 24 mapped tiles of rank 1 (bf16 and f32 tilings) against the "
+        f"plain twin and the full launch's tile of the global head: {mismatches} mismatches")
+    if mismatches:
+        raise AssertionError(f"mapped probe tiles: {mismatches} mismatches")
+    return results
+
+
+def _state_tensors(state) -> dict:
+    """A train state's tensors by name: module entries, both moments."""
+    return {**{f"module.{k}": v for k, v in state.module.state_dict().items()},
+            **{f"mu.{k}": v for k, v in state.opt_state.mu.items()},
+            **{f"nu.{k}": v for k, v in state.opt_state.nu.items()}}
+
+
+def train_rank(spec_json: str) -> int:
+    """One ``cli.train`` process of the multi_device phase (a rank when the
+    ``IST_*`` variables are set, else the single-process run): runs
+    ``cli.train.main(argv)`` and writes, as JSON to ``out``: launches during
+    the training epochs and in all, seconds per epoch, all-reduce seconds,
+    peak memory, ``torch.save`` calls, whether the module's tensors (and the
+    BatchNorm statistics) equal the first rank's bit for bit, and whether
+    the written checkpoint restores, on this rank, into the live state's
+    tensors bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import train as train_cli
+    from imagined_speech_translation_tpu_torch.training import EEGTrainer, learning_rates_at
+
+    spec = json.loads(spec_json)
+    epochs, saves = [], []
+    train_epoch, save = EEGTrainer.train_epoch, torch.save
+
+    def recorded_epoch(self, state, epoch, **kw):
+        torch.cuda.synchronize()
+        before = _kernels.launch_counts()
+        t0 = time.perf_counter()
+        out = train_epoch(self, state, epoch, **kw)
+        torch.cuda.synchronize()
+        after = _kernels.launch_counts()
+        epochs.append(dict(seconds=time.perf_counter() - t0,
+                           launches={k: after[k] - before[k] for k in after}))
+        return out
+
+    def counted_save(obj, f, *a, **kw):
+        saves.append(str(f))
+        return save(obj, f, *a, **kw)
+
+    EEGTrainer.train_epoch, torch.save = recorded_epoch, counted_save
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_cli.main(spec["argv"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    EEGTrainer.train_epoch, torch.save = train_epoch, save
+    trainer, state = res["trainer"], res["state"]
+    device = next(state.module.parameters()).device
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+
+    # the module's tensors against the first rank's, bit for bit
+    unequal = []
+    for key, t in state.module.state_dict().items():
+        first = t.clone()
+        if world > 1:
+            dist.broadcast(first.view(-1).view(torch.uint8), 0)
+        if not torch.equal(first, t):
+            unequal.append(key)
+    # the checkpoint restores into the live state's tensors bit for bit
+    name = trainer.ckpt.latest_epoch_checkpoint()
+    live = {k: v.clone() for k, v in _state_tensors(state).items()}
+    t1 = time.perf_counter()
+    restored, _ = trainer.ckpt.restore(name, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    got = _state_tensors(restored)
+    differ = [k for k, v in live.items() if not torch.equal(v, got[k])]
+    lrs = [max(learning_rates_at(trainer.cfg.training.optimizer, trainer.total_steps, s)
+               .values()) for s in range(int(state.step))]
+    out = dict(rank=rank, world=world, device=str(device), step=int(state.step),
+               launches=launches, epochs=epochs, wall_s=wall, peak_gib=peak,
+               allreduce_s=getattr(trainer._train_step, "allreduce_seconds", 0.0),
+               saves=saves, unequal_to_first_rank=unequal,
+               bn_equal_to_first_rank=not any("running_" in k for k in unequal),
+               restored=name, restore_s=restore_s, restore_differs=differ,
+               lr_max=max(lrs), test_predictions=res["test_metrics"]["predictions"])
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _spawn_train(tmp, tag: str, argv: list, env: dict):
+    """Start one ``train_rank`` process; returns (process, result path, log path)."""
+    import os
+    from pathlib import Path
+
+    res, log_path = tmp / f"{tag}.json", tmp / f"{tag}.log"
+    spec = json.dumps(dict(argv=argv, out=str(res)))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.train_rank(sys.argv[1]))"
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code, spec], stdout=f,
+                                stderr=subprocess.STDOUT, env={**os.environ, **env},
+                                cwd=str(Path(__file__).resolve().parent))
+    return proc, res, log_path
+
+
+def _wait_all(runs, timeout_s: float) -> list[dict]:
+    """Wait for every ``_spawn_train`` run (killing all on a failure or at
+    the deadline); returns their results."""
+    deadline = time.perf_counter() + timeout_s
+    try:
+        for proc, _, log_path in runs:
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            if rc != 0:
+                tail = log_path.read_text()[-3000:]
+                raise AssertionError(f"{log_path.name} exited {rc}:\n{tail}")
+    finally:
+        for proc, _, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [json.loads(res.read_text()) for _, res, _ in runs]
+
+
+def _train_metrics(path) -> list[dict]:
+    """The per-step ``train/...`` metrics of a ``metrics.jsonl``."""
+    rows = [json.loads(line) for line in path.open()]
+    return [{k: v for k, v in r.items() if k.startswith("train/loss") or k == "train/grad_norm"}
+            for r in rows if "train/loss" in r]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multi_device(smi: str, tmp):
+    """16. Data parallelism on one card, on the trainer phase's corpus.
+    (a) ``multi_device_kernels``.  (b) ``cli.train`` at full width
+    (``default_config()``, float32: ``training.mixed_precision=false``) for
+    1 epoch of 2 optimizer steps (8 micro-steps of 4 windows), an evaluation
+    and a checkpoint, once in one process (``parallel.data_axis=1``) and
+    once as two ranks (``IST_COORDINATOR`` on a free port,
+    ``IST_NUM_PROCESSES=2``, ``IST_PROCESS_ID=0/1``, ``IST_BACKEND=gloo``:
+    NCCL refuses two ranks on one card; ``parallel.data_axis=2``), each
+    process a ``train_rank``.  Checks: every step's loss and components
+    within 2e-4 relative of the one-process run; the final weights by the
+    rule of ``tests/test_torch_train_step.py`` (within 1e-6 + 1e-3 of the
+    largest learning rate, all but 0.1% of them, and every one within 2.1
+    learning rates), the BatchNorm statistics within 1e-4 relative + 1e-5
+    and equal on both ranks, the whole module equal on both ranks; the same
+    checkpoint directories as the one-process run, each written once (by
+    the first rank), restored bit for bit on both ranks; on each rank
+    exactly 5 flash forward and 5 fused backward launches a micro-step (16
+    micro-steps of 2 windows), and 10 flash forward an evaluation batch on
+    the first rank only.  (c) Serving: ``cli.serve.build_decode_fn_from_args``
+    on the two-rank run's checkpoint (beam 3 pinned to 16, BatchNorm folded,
+    bf16) with ``devices=["cuda:0", "cuda:0"]``: two replicas on one card.
+    The ids of 16 windows equal the single replica's; 15 windows raise
+    "not divisible"; behind a ``BatchScheduler(max_batch=16)`` 10 live
+    windows get the single replica's ids on the same padded batch; exactly 2
+    IIR and 10 flash forward launches a batch.  Times: seconds a step of
+    both runs, the all-reduce's share, peak memory a rank, windows/s of two
+    replicas beside one.  Two ranks (or replicas) share the card's SMs and
+    gloo reduces through the host: these numbers measure correctness, not
+    scaling.  Returns the launches of the two-rank run and of the serving
+    batch."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.config import default_config, replace_nested
+    from imagined_speech_translation_tpu_torch.runtime import BatchScheduler
+
+    kernel_rows = timed(multi_device_kernels)
+    torch.cuda.empty_cache()
+
+    cfg = default_config()
+    micro = cfg.training.grad_accum_steps * 2  # 2 windows of 8 micro-steps
+    base = ["--data-dir", str(tmp / "data"), "--montage", str(tmp / "montage.csv"),
+            "--vocab", str(tmp / "vocab.txt"), "--device", "cuda"]
+    for s in DP_SETS:
+        base += ["--set", s]
+    env = {"WANDB_MODE": "disabled"}
+    one_dir, dp_dir = tmp / "dp_one", tmp / "dp_two"
+    t0 = time.perf_counter()
+    (one,) = _wait_all([_spawn_train(tmp, "dp_one", base + [
+        "--out-dir", str(one_dir), "--set", "parallel.data_axis=1"], env)], 600)
+    t_one = time.perf_counter() - t0
+    port = _free_port()
+    rank_env = dict(env, IST_COORDINATOR=f"127.0.0.1:{port}",
+                    IST_NUM_PROCESSES=str(DP_RANKS), IST_BACKEND="gloo")
+    log(f"[multi_device] one process: {t_one:.1f} s; two ranks with IST_COORDINATOR="
+        f"127.0.0.1:{port} IST_NUM_PROCESSES={DP_RANKS} IST_BACKEND=gloo (NCCL refuses two "
+        f"ranks on one card) WANDB_MODE=disabled, --set parallel.data_axis={DP_RANKS}")
+    t0 = time.perf_counter()
+    ranks = _wait_all([_spawn_train(tmp, f"dp_rank{r}", base + [
+        "--out-dir", str(dp_dir), "--set", f"parallel.data_axis={DP_RANKS}"],
+        dict(rank_env, IST_PROCESS_ID=str(r))) for r in range(DP_RANKS)], 600)
+    t_two = time.perf_counter() - t0
+
+    # every step's loss and components
+    want, got = _train_metrics(one_dir / "metrics.jsonl"), _train_metrics(dp_dir / "metrics.jsonl")
+    if len(want) != 2 or len(got) != 2:
+        raise AssertionError(f"logged steps: {len(want)} one process, {len(got)} two ranks")
+    worst = 0.0
+    for i, (w, g) in enumerate(zip(want, got)):
+        for key in w:
+            rel = abs(g[key] - w[key]) / max(abs(w[key]), 1e-30)
+            if key != "train/grad_norm":
+                worst = max(worst, rel)
+                if rel > DP_STEP_RTOL:
+                    raise AssertionError(f"step {i} {key}: two ranks {g[key]}, one process "
+                                         f"{w[key]} (rel {rel:.2e} > {DP_STEP_RTOL})")
+    grad_rel = [abs(g["train/grad_norm"] - w["train/grad_norm"]) / w["train/grad_norm"]
+                for w, g in zip(want, got)]
+    log(f"[multi_device] train: steps {[r['step'] for r in ranks]} (one process "
+        f"{one['step']}); losses and components of both steps within {worst:.2e} relative "
+        f"(bound {DP_STEP_RTOL}); grad norm {grad_rel}; one process loss "
+        f"{[round(w['train/loss'], 6) for w in want]}, two ranks "
+        f"{[round(g['train/loss'], 6) for g in got]}")
+
+    # checkpoints: the same directories, each written once, restored on both ranks
+    dirs_one = sorted(p.name for p in (one_dir / "checkpoints").iterdir())
+    dirs_two = sorted(p.name for p in (dp_dir / "checkpoints").iterdir())
+    writes = [len(r["saves"]) for r in ranks]
+    if (dirs_two != dirs_one or "checkpoint_epoch_1" not in dirs_two
+            or writes != [len(dirs_two)] + [0] * (DP_RANKS - 1)):
+        raise AssertionError(f"checkpoints {dirs_two} (one process {dirs_one}), writes a rank "
+                             f"{writes}")
+    for r in ranks:
+        if r["restore_differs"] or r["unequal_to_first_rank"] or not r["bn_equal_to_first_rank"]:
+            raise AssertionError(f"rank {r['rank']}: restore differs at "
+                                 f"{r['restore_differs'][:5]}, unequal to rank 0 at "
+                                 f"{r['unequal_to_first_rank'][:5]}")
+    log(f"[multi_device] checkpoints {dirs_two}, written once each (torch.save calls by rank "
+        f"{writes}); {ranks[0]['restored']} restored bit for bit on both ranks "
+        f"({[round(r['restore_s'], 2) for r in ranks]} s); module and BatchNorm statistics "
+        f"equal on both ranks")
+
+    # final weights against the one-process run's, by the learning-rate rule
+    lr = one["lr_max"]
+    a = torch.load(one_dir / "checkpoints" / "checkpoint_epoch_1" / "state.pt",
+                   map_location="cuda", weights_only=True)["module"]
+    b = torch.load(dp_dir / "checkpoints" / "checkpoint_epoch_1" / "state.pt",
+                   map_location="cuda", weights_only=True)["module"]
+    flipped = n = 0
+    worst_bn = worst_p = 0.0
+    for key, w in a.items():
+        g = b[key]
+        diff = (g.float() - w.float()).abs()
+        if "running_" in key:
+            excess = (diff - 1e-4 * w.float().abs()).max().item()
+            worst_bn = max(worst_bn, excess)
+            if excess > 1e-5:
+                raise AssertionError(f"BatchNorm {key}: beyond 1e-4 relative + 1e-5")
+            continue
+        worst_p = max(worst_p, diff.max().item())
+        if diff.max().item() > 1e-6 + 1e-3 * lr + 2.1 * lr:
+            raise AssertionError(f"{key}: max |diff| {diff.max().item()} beyond 2.1 lr ({lr})")
+        flipped += int((diff > 1e-6 + 1e-3 * lr).sum())
+        n += w.numel()
+    del a, b
+    torch.cuda.empty_cache()
+    if flipped > 1e-3 * n:
+        raise AssertionError(f"{flipped} of {n} parameters beyond 1e-3 lr")
+    log(f"[multi_device] final weights: {flipped} of {n} parameters beyond 1e-6 + 1e-3 x lr "
+        f"(lr max {lr:.3e}; allowed {int(1e-3 * n)}), max |diff| {worst_p:.3e}; BatchNorm "
+        f"statistics within 1e-4 relative + {max(worst_bn, 0.0):.2e}")
+
+    # launches a rank
+    per_micro = {k: 0 for k in one["launches"]}
+    per_micro.update(flash_fwd=5 * micro, flash_bwd=5 * micro)
+    evals = one["launches"]["flash_fwd"] - 5 * micro  # 10 an evaluation batch
+    for r in ranks + [one]:
+        train = {k: sum(e["launches"][k] for e in r["epochs"]) for k in per_micro}
+        extra = evals if r["rank"] == 0 else 0
+        if train != per_micro or r["launches"] != dict(per_micro, flash_fwd=5 * micro + extra):
+            raise AssertionError(f"rank {r['rank']} of {r['world']}: training launches {train},"
+                                 f" all {r['launches']}; want {per_micro} + {extra} forward")
+    if evals <= 0 or evals % 10:
+        raise AssertionError(f"evaluation launches {evals}")
+    log(f"[multi_device] launches: each rank 5 flash forward + 5 fused backward a micro-step "
+        f"({micro} micro-steps of 2 windows); evaluations {evals} flash forward on rank 0 only")
+
+    def per_step(r):
+        return sum(e["seconds"] for e in r["epochs"]) / r["step"]
+
+    log(f"[multi_device] on {smi}: one process {per_step(one):.2f} s a step (peak "
+        f"{one['peak_gib']:.1f} GiB, wall {one['wall_s']:.1f} s); two ranks on one card "
+        f"{[round(per_step(r), 2) for r in ranks]} s a step, all-reduce "
+        f"{[round(r['allreduce_s'], 2) for r in ranks]} s of "
+        f"{[round(sum(e['seconds'] for e in r['epochs']), 2) for r in ranks]} s "
+        f"({[round(r['allreduce_s'] / sum(e['seconds'] for e in r['epochs']), 3) for r in ranks]}"
+        f" of the epoch), peak {[round(r['peak_gib'], 1) for r in ranks]} GiB a rank, wall "
+        f"{[round(r['wall_s'], 1) for r in ranks]} s; the phase's processes {t_one:.1f} + "
+        f"{t_two:.1f} s; correctness, not scaling: both ranks share the card and gloo "
+        f"reduces through the host")
+    dp_launches = {k: sum(r["launches"][k] for r in ranks) for k in per_micro}
+
+    # serving: two replicas on one card
+    scfg = replace_nested(cfg, "generation.min_length", cfg.generation.max_length)
+    (tmp / "dp_serve_config.json").write_text(scfg.to_json())
+    T = scfg.data.n_timepoints
+    fargs = dict(vocab=str(tmp / "vocab.txt"), montage=str(tmp / "montage.csv"),
+                 config=str(tmp / "dp_serve_config.json"),
+                 checkpoint=str(dp_dir / "checkpoints" / "checkpoint_epoch_1"), device="cuda",
+                 compute_dtype="bfloat16", max_batch=16)
+    one_fn, one_tok = build_recorded(fargs)
+    two_fn, two_tok = build_recorded(dict(fargs, devices=["cuda:0", "cuda:0"]))
+    log("[multi_device] serving: one replica, and two replicas on one card (cuda:0, cuda:0)")
+    windows = np.random.default_rng(17).normal(size=(16, 125, T)).astype(np.float32)
+    one_fn(windows)
+    want_ids = one_tok.history[-1]
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    two_fn(windows)
+    torch.cuda.synchronize()
+    serve_launches = _kernels.launch_counts()
+    if serve_launches != {**{k: 0 for k in serve_launches}, "sosfilt": 2, "flash_fwd": 10}:
+        raise AssertionError(f"two replicas launched {serve_launches} for a batch, want 2 "
+                             f"sosfilt + 10 flash_fwd")
+    if not np.array_equal(two_tok.history[-1], want_ids):
+        raise AssertionError("two replicas' ids differ from one replica's")
+    try:
+        two_fn(windows[:15])
+        raise AssertionError("15 windows over two replicas did not raise")
+    except ValueError as e:
+        if "not divisible" not in str(e):
+            raise
+
+    async def pooled():
+        async with BatchScheduler(two_fn, max_batch=16, max_delay_ms=20) as s:
+            return await asyncio.gather(*(s.submit(w) for w in windows[:10]))
+
+    pooled_texts = asyncio.run(pooled())
+    padded = np.concatenate([windows[:10], np.repeat(windows[:1], 6, axis=0)])
+    if pooled_texts != one_fn(padded)[:10] or len(two_tok.history) != 3:
+        raise AssertionError("10 pooled windows over two replicas: not one batch, or texts "
+                             "other than one replica's on the same padded batch")
+    if not np.array_equal(two_tok.history[-1][:10], one_tok.history[-1][:10]):
+        raise AssertionError("pooled windows' ids over two replicas differ from one replica's")
+
+    rates = {"one": [], "two": []}
+    for tag, fn in (("one", one_fn), ("two", two_fn), ("two", two_fn), ("one", one_fn)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(windows)
+        rates[tag].append(48 / (time.perf_counter() - t0))
+    log(f"[multi_device] serving: ids of 16 windows equal over two replicas and one; 15 raise "
+        f"'not divisible'; 10 pooled windows (padded to 16) equal; 2 sosfilt + 10 flash_fwd "
+        f"launches a batch; windows/s on {smi} (one, two, two, one turns): two replicas "
+        f"{[round(x, 2) for x in rates['two']]}, one {[round(x, 2) for x in rates['one']]}")
+    del one_fn, two_fn
+    torch.cuda.empty_cache()
+    return kernel_rows, dp_launches, serve_launches
+
+
 def run_trainer_and_server(smi: str):
     """The trainer phase, then the server phase on its checkpoint, then the
-    graft and feed phases on its corpus, in one scratch directory under
-    ``build/`` that is removed afterwards.  Returns the trainer, server and
-    graft phases' launches."""
+    graft, feed and multi_device phases on its corpus, in one scratch
+    directory under ``build/`` that is removed afterwards.  Returns the
+    trainer, server and graft phases' launches and the multi_device phase's
+    results."""
     import shutil
     import tempfile
     from pathlib import Path
+
+    import torch
 
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
@@ -2352,7 +2864,9 @@ def run_trainer_and_server(smi: str):
         server = timed(phase_server, smi, tmp)
         graft = timed(phase_graft, smi, tmp)
         timed(phase_feed, smi, tmp)
-        return trainer, server, graft
+        torch.cuda.empty_cache()
+        multi = timed(phase_multi_device, smi, tmp)
+        return trainer, server, graft, multi
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2373,7 +2887,10 @@ HEADLINE = {
 }
 
 
-def summary(checks, launches_by_path):
+def summary(checks, launches_by_path, mapping_checks):
+    """The kernels' JSON line; ``mapping_checks`` (the multi_device phase's
+    rows, a rank's launch against the full launch's rows) go to the flash
+    forward's and the fused backward's entries."""
     from imagined_speech_translation_tpu_torch import _kernels
 
     out = []
@@ -2388,6 +2905,8 @@ def summary(checks, launches_by_path):
             max_abs_err=max(c["max_abs_err"] for c in checks[k.name]),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"], checks=checks[k.name],
+            **({"mapping_checks": mapping_checks} if k.name in ("flash_fwd", "flash_bwd")
+               else {}),
         ))
     return {"kernels": out}
 
@@ -2420,7 +2939,8 @@ def main() -> int:
     timed(phase_train_card_vs_cpu)
     profile_launches = timed(phase_profile_train, smi)
     torch.cuda.empty_cache()
-    trainer_launches, server_launches, graft_launches = run_trainer_and_server(smi)
+    trainer_launches, server_launches, graft_launches, multi = run_trainer_and_server(smi)
+    mapping_checks, dp_launches, serving_dp_launches = multi
     features_launches = timed(phase_features, smi)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
@@ -2430,7 +2950,9 @@ def main() -> int:
                                     "trainer": trainer_launches,
                                     "server": server_launches,
                                     "graft": graft_launches,
-                                    "features": features_launches})))
+                                    "features": features_launches,
+                                    "data_parallel": dp_launches,
+                                    "serving_dp": serving_dp_launches}, mapping_checks)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -39,14 +39,15 @@ _SIGNATURES = {
     "ist_sosfilt_f32": [_P, _P, _I, _I, _P, _I, _P, _I, _P],
     "ist_sosfilt_max_sections": [],
     "ist_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
-                      _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _P],
+                      _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     "ist_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
-                      ctypes.c_float, _I, _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _P],
+                      ctypes.c_float, _I, _I, _I, ctypes.c_uint, _I, _I, ctypes.c_float,
+                      _I, _I, _I, _I, _P],
     "ist_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                          ctypes.c_float, _I, _P],
     "ist_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                           ctypes.c_float, _I, _P],
-    "ist_dropout_mask": [_P, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _P],
+    "ist_dropout_mask": [_P, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -20,16 +20,19 @@ running statistics included; the loss heads and the optimizer state are
 ignored) or a file holding a model ``state_dict`` (``torch.save``); either
 loads strictly.  ``--device`` stands in for the JAX script's
 ``--platform``: the card by default, ``cpu`` on request, and without a card
-the script raises instead of falling back.  ``--data-parallel`` above 1
-(a decode batch sharded over several cards) is refused: multi-device
-serving is not ported.  The JAX script's persistent compile cache has no
-counterpart: the kernels build once into ``build/kernels/``.
+the script raises instead of falling back.  ``--data-parallel N`` holds one
+replica of the folded, cast model on each of N cards (N CPU replicas with
+``--device cpu``) and splits every decode batch over them in contiguous
+rows, as the JAX script's SPMD mesh shards it; a batch must be a multiple
+of N.  The JAX script's persistent compile cache has no counterpart: the
+kernels build once into ``build/kernels/``.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import copy
 import functools
 import logging
@@ -43,16 +46,16 @@ from ..data import ChineseCharTokenizer, RegionSpec, load_montage
 from ..decode import DecodeParams, build_generate_fn
 from ..frontend import SignalFrontend
 from ..models import EEGDecodingModel, build_model, fold_batch_norm
+from ..parallel import make_mesh
+from ..parallel.mesh import Mesh, split_batch
 
 logger = logging.getLogger(__name__)
 
-NO_DATA_PARALLEL = ("--data-parallel > 1 (one decode batch sharded over several cards) is not "
-                    "ported: multi-device serving is ROADMAP item 1.7")
-
 
 def build_decode_fn(cfg: Config, tokenizer, region_spec, model: EEGDecodingModel, *,
-                    device, fold_bn: bool = True, compute_dtype: torch.dtype | None = None,
-                    transfer_dtype=None):
+                    device=None, fold_bn: bool = True,
+                    compute_dtype: torch.dtype | None = None, transfer_dtype=None,
+                    mesh: Mesh | None = None):
     """``(N, n_ch, T)`` numpy windows -> ``list[str]``.
 
     The IIR runs in float32 on the raw windows; with ``compute_dtype`` (e.g.
@@ -64,8 +67,19 @@ def build_decode_fn(cfg: Config, tokenizer, region_spec, model: EEGDecodingModel
     back up to float32 on the device before the IIR: half the
     host-to-device bytes a call.  float16 keeps about three decimal digits,
     far below the noise of raw EEG, but the tokens are no longer pinned to
-    the float32 wire's, so the mode stays opt-in."""
-    device = torch.device(device)
+    the float32 wire's, so the mode stays opt-in.
+
+    With ``mesh`` (a serving mesh, ``parallel.make_mesh(n, 1,
+    devices=[...])``) instead of ``device``, one replica of the folded, cast
+    model sits on each of the mesh's devices (a device may repeat); a batch
+    splits into contiguous rows, one shard a replica, each shard runs on its
+    replica's stream, and the ids come back in order.  ``N`` must then be a
+    multiple of the shard count."""
+    if (mesh is None) == (device is None):
+        raise ValueError("build_decode_fn takes a device or a serving mesh, one of them")
+    if mesh is not None and mesh.over_ranks:
+        raise ValueError("a serving mesh lists the devices of its replicas "
+                         "(make_mesh(n, 1, devices=[...]))")
     wire = np.dtype(transfer_dtype if transfer_dtype is not None else np.float32)
     if fold_bn:
         model = fold_batch_norm(model)  # a folded copy, in float32
@@ -73,6 +87,31 @@ def build_decode_fn(cfg: Config, tokenizer, region_spec, model: EEGDecodingModel
         model = copy.deepcopy(model)
     if compute_dtype is not None:
         model = model.to(compute_dtype)
+    devices = [device] if mesh is None else mesh.devices
+    replicas = [
+        _replica(cfg, tokenizer, region_spec, model if i == 0 else copy.deepcopy(model),
+                 torch.device(d), compute_dtype, wire, own_stream=mesh is not None)
+        for i, d in enumerate(devices)
+    ]
+
+    @torch.inference_mode()
+    def decode_fn(windows: np.ndarray) -> list[str]:
+        shards = [windows] if mesh is None else [
+            s["windows"] for s in split_batch(mesh, {"windows": windows})]
+        # every shard is enqueued before any is read back
+        done = [run(shard) for run, shard in zip(replicas, shards)]
+        ids = np.concatenate([read() for read in done])
+        return [t.strip() for t in tokenizer.batch_decode(ids)]
+
+    return decode_fn
+
+
+def _replica(cfg: Config, tokenizer, region_spec, model: EEGDecodingModel, device,
+             compute_dtype, wire, *, own_stream: bool):
+    """``run(windows) -> read``: enqueues the preprocess and beam search of
+    one model replica on ``device`` (on a card with ``own_stream``, on the
+    replica's own stream) and returns the function that waits for the ids
+    and reads them back as numpy."""
     model = model.to(device).eval()
     frontend = SignalFrontend(cfg.frontend)
     dp = DecodeParams(
@@ -89,20 +128,31 @@ def build_decode_fn(cfg: Config, tokenizer, region_spec, model: EEGDecodingModel
     R, C = mask.shape
     T = cfg.data.n_timepoints
 
-    @torch.inference_mode()
-    def decode_fn(windows: np.ndarray) -> list[str]:
-        # a half-precision wire is cast up before the (f32-sensitive) IIR; a
-        # read-only batch (a decode worker's pipe buffer) is copied first
-        raw = torch.from_numpy(np.require(windows, wire, "W")).to(device).float()
-        clean = frontend.preprocess(raw)
-        stacked = clean[:, gather, :].reshape(raw.shape[0], R, C, T)
-        stacked = torch.where(mask[None, :, :, None], stacked, 0.0)
-        if compute_dtype is not None:
-            stacked = stacked.to(compute_dtype)
-        tokens = generate(stacked, mask).cpu().numpy()
-        return [t.strip() for t in tokenizer.batch_decode(tokens)]
+    stream = torch.cuda.Stream(device) if own_stream and device.type == "cuda" else None
 
-    return decode_fn
+    def run(windows: np.ndarray):
+        if stream is not None:
+            # the weights and any earlier work are the default stream's
+            stream.wait_stream(torch.cuda.current_stream(device))
+        with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
+            # a half-precision wire is cast up before the (f32-sensitive) IIR;
+            # a read-only batch (a decode worker's pipe buffer) is copied first
+            raw = torch.from_numpy(np.require(windows, wire, "W")).to(device).float()
+            clean = frontend.preprocess(raw)
+            stacked = clean[:, gather, :].reshape(raw.shape[0], R, C, T)
+            stacked = torch.where(mask[None, :, :, None], stacked, 0.0)
+            if compute_dtype is not None:
+                stacked = stacked.to(compute_dtype)
+            ids = generate(stacked, mask)
+
+        def read() -> np.ndarray:
+            if stream is not None:
+                torch.cuda.current_stream(device).wait_stream(stream)
+            return ids.cpu().numpy()
+
+        return read
+
+    return run
 
 
 def serving_context(config: str | None, vocab: str, montage: str):
@@ -149,18 +199,34 @@ def build_decode_fn_from_args(
     transfer_dtype: str | None = None,
     max_batch: int = 1,
     device: str = "cuda",
+    devices: list[str] | None = None,
 ):
     """Build and warm the serving ``decode_fn`` from plain (picklable)
     arguments, so the whole build can run in the server process or inside
     a ``runtime.worker.DecodeWorker`` child, which then owns the card.
 
     Without ``checkpoint``, or with ``random_init``, the weights are random
-    from seed 0 (smoke mode).  ``device="cuda"`` without a card raises."""
-    if data_parallel > 1:
-        raise NotImplementedError(NO_DATA_PARALLEL)
+    from seed 0 (smoke mode).  ``device="cuda"`` without a card raises.
+    ``data_parallel > 1`` serves one replica on each of that many cards
+    (raises without them; CPU replicas with ``device="cpu"``), or on the
+    ``devices`` given (repeats allowed, e.g. two replicas on one card)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: pass device='cpu' (--device cpu) to serve on the CPU")
+    mesh = None
+    if data_parallel > 1 or devices is not None:
+        if devices is None:
+            if device.type == "cuda" and torch.cuda.device_count() < data_parallel:
+                raise RuntimeError(f"--data-parallel {data_parallel} needs {data_parallel} "
+                                   f"cards, {torch.cuda.device_count()} found")
+            devices = [torch.device(device.type, i) if device.type == "cuda" else device
+                       for i in range(data_parallel)]
+        elif data_parallel > 1 and len(devices) != data_parallel:
+            raise ValueError(f"data_parallel={data_parallel} with {len(devices)} devices")
+        mesh = make_mesh(len(devices), 1, devices=devices)
+        device = mesh.devices[0]
+        logger.info("decode mesh: %d replicas on %s", len(devices),
+                    ", ".join(map(str, mesh.devices)))
     cfg, tokenizer, spec = serving_context(config, vocab, montage)
     T = cfg.data.n_timepoints
     model = build_model(cfg.model, T, seed=0, device=device)
@@ -170,13 +236,14 @@ def build_decode_fn_from_args(
     else:
         logger.warning("serving with random weights (smoke mode)")
     decode_fn = build_decode_fn(
-        cfg, tokenizer, spec, model, device=device,
+        cfg, tokenizer, spec, model, device=None if mesh is not None else device, mesh=mesh,
         compute_dtype=getattr(torch, compute_dtype) if compute_dtype else None,
         transfer_dtype=np.dtype(transfer_dtype) if transfer_dtype else None,
     )
     n_ch = int(spec.gather_indices.max() + 1)
     logger.info("warming up the decode function...")
-    decode_fn(np.zeros((max(1, max_batch), n_ch, T), np.float32))
+    n_shards = 1 if mesh is None else mesh.n_batch_shards
+    decode_fn(np.zeros((n_shards * -(-max(1, max_batch) // n_shards), n_ch, T), np.float32))
     logger.info("decode function ready")
     return decode_fn
 
@@ -270,8 +337,9 @@ def main(argv=None):
     )
     ap.add_argument(
         "--data-parallel", type=int, default=0,
-        help="shard each decode batch over this many devices (0 = single "
-        "device); above 1 it is refused: multi-device serving is not ported",
+        help="split each decode batch over one model replica on each of this many "
+        "cards (0 = one device; CPU replicas with --device cpu); --max-batch must "
+        "be a multiple of it",
     )
     ap.add_argument(
         "--compute-dtype", default=None, choices=("bfloat16", "float32"),
@@ -290,8 +358,9 @@ def main(argv=None):
     )
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.data_parallel > 1:
-        ap.error(NO_DATA_PARALLEL)
+    if args.data_parallel > 1 and args.max_batch % args.data_parallel:
+        ap.error(f"--max-batch {args.max_batch} is not a multiple of --data-parallel "
+                 f"{args.data_parallel}")
 
     from .train import check_device
 

@@ -17,6 +17,13 @@ fine-tune setup) and grafts it into the fresh state's decoder in place
 resumed checkpoint overrides it.  It trains on the CUDA card, or on the CPU
 with ``--device cpu``; it never falls back from one to the other.  The JAX
 script's persistent compile cache is not ported.
+
+Data parallelism: start one process a rank with ``IST_COORDINATOR=host:port``,
+``IST_NUM_PROCESSES=N`` and ``IST_PROCESS_ID=i`` (optionally
+``IST_BACKEND=gloo``; see ``parallel.distributed``) and the same flags plus
+``--set parallel.data_axis=N`` (or ``parallel.dcn_axis``).  Rank ``i`` trains
+on ``cuda:{i % device_count}`` (``--device cpu``: CPU ranks on gloo); the
+primary logs the metrics and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -30,10 +37,12 @@ import torch
 
 from ..config import Config, default_config, replace_nested
 from ..data import ChineseCharTokenizer, EEGTextDataset, split_indices
+from ..parallel import initialize_distributed, is_primary
+from ..parallel.distributed import rank_device
 from ..training import EEGTrainer, get_top_k_vocab_indices
 from ..training.pretrained import graft_bart_params
 from ..utils import seed_everything
-from ..utils.metrics import get_logger
+from ..utils.metrics import NullLogger, get_logger
 
 logger = logging.getLogger(__name__)
 
@@ -95,6 +104,9 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO)
     device = check_device(args.device)
+    # no-op unless IST_COORDINATOR / IST_DISTRIBUTED are set
+    initialize_distributed(device=device)
+    device = rank_device(device)
     cfg = load_config(args.config, args.overrides)
     tc = cfg.training
 
@@ -127,7 +139,7 @@ def main(argv=None) -> dict:
 
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    mlog = get_logger(out_dir, config=cfg.to_dict())
+    mlog = get_logger(out_dir, config=cfg.to_dict()) if is_primary() else NullLogger()
     trainer = EEGTrainer(
         cfg, dataset, tokenizer,
         bow_indices=bow,

@@ -25,7 +25,7 @@ __global__ void dropout_mask_kernel(float* __restrict__ out, DropoutMask m, int 
   if (idx >= n) return;
   const int r = idx / m.block_k;
   const int c = idx - r * m.block_k;
-  out[idx] = dropout_keep(m, bh, q0 + r, k0 + c) ? 1.f : 0.f;
+  out[idx] = dropout_keep<true>(m, bh, q0 + r, k0 + c) ? 1.f : 0.f;
 }
 
 }  // namespace
@@ -33,14 +33,17 @@ __global__ void dropout_mask_kernel(float* __restrict__ out, DropoutMask m, int 
 extern "C" {
 
 // out: float32 (block_q, block_k) on the device: 1 where the element of tile
-// (qi, ki) of head bh is kept, 0 where it is dropped.  Returns the
-// cudaError_t of the launch.
+// (qi, ki) of head bh is kept, 0 where it is dropped; bh is a local head,
+// mapped as in ist_flash_fwd.  Returns the cudaError_t of the launch.
 int ist_dropout_mask(float* out, int bh, int qi, int ki, int block_q, int block_k, int seed,
-                     unsigned threshold, void* stream) {
-  if (bh < 0 || qi < 0 || ki < 0 || block_q < 1 || block_k < 1) {
+                     unsigned threshold, int b_local, int b_global, int b_offset, int heads,
+                     void* stream) {
+  if (bh < 0 || qi < 0 || ki < 0 || block_q < 1 || block_k < 1 ||
+      !dropout_heads_valid(0, b_local, b_global, b_offset, heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const DropoutMask m = make_dropout_mask(1, seed, threshold, block_q, block_k, 1.f);
+  const DropoutMask m = make_dropout_mask(1, seed, threshold, block_q, block_k, 1.f, b_local,
+                                          b_global, b_offset, heads);
   const int n = block_q * block_k;
   dropout_mask_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       out, m, bh, qi * block_q, ki * block_k);

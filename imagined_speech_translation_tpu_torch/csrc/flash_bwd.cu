@@ -81,17 +81,20 @@ extern "C" {
 // float32 (bh, s_q, d), zeroed by the caller, accumulated by atomic
 // reductions.  dk, dv: (bh, s_kv, d) in the input dtype, written.  qscale =
 // scale * log2(e).
-// Dropout as in ist_flash_fwd.  Returns the cudaError_t of the launch.
+// Dropout and its head mapping as in ist_flash_fwd.  Returns the cudaError_t
+// of the launch.
 int ist_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, float* dq, void* dk, void* dv, int bh,
                   int s_q, int s_kv, int d, float qscale, float scale, int dtype, int dropout,
                   int seed, unsigned threshold, int block_q, int block_k, float inv_keep,
-                  void* stream) {
+                  int b_local, int b_global, int b_offset, int heads, void* stream) {
   if (bh < 1 || s_q < 1 || s_kv < 1 || d < 1 || d > 256 || (s_kv + 31) / 32 > 65535 ||
-      (dropout && (block_q < 1 || block_k < 1))) {
+      (dropout && (block_q < 1 || block_k < 1)) ||
+      !dropout_heads_valid(bh, b_local, b_global, b_offset, heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const DropoutMask drop = make_dropout_mask(dropout, seed, threshold, block_q, block_k, inv_keep);
+  const DropoutMask drop = make_dropout_mask(dropout, seed, threshold, block_q, block_k, inv_keep,
+                                             b_local, b_global, b_offset, heads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && tf32_fits(d, q, k, v, dout, dq, dk, dv))
     return dispatch_bwd_tf32(q, k, v, dout, lse, delta, dq, dk, dv, bh, s_q, s_kv, d, qscale,

@@ -106,13 +106,14 @@ struct Grad {
   float pt, ds;
 };
 
+template <bool kMap>
 __device__ __forceinline__ Grad score_grad(float s, float dp, float lse, float delta, int bh,
                                            int row, int col, int s_q, int s_kv, float qscale,
                                            const DropoutMask& drop) {
   const float p = exp2f((col < s_kv ? s * qscale : kNegInf) - lse);
   float pt = p;
   if (drop.on) {
-    const bool keep = dropout_keep(drop, bh, row, col);
+    const bool keep = dropout_keep<kMap>(drop, bh, row, col);
     pt = keep ? p * drop.inv_keep : 0.f;
     dp = keep ? dp * drop.inv_keep : 0.f;
   }
@@ -134,7 +135,7 @@ size_t smem_bytes(int d) {
                           static_cast<size_t>(2 * BQ) * (BK + 1) + 2 * BQ);
 }
 
-template <typename T, int DMAX, int BK, int BQ, bool kDQ>
+template <typename T, int DMAX, int BK, int BQ, bool kDQ, bool kMap>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
@@ -230,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int c = tx + 16 * j;
-        const Grad gr = score_grad(s[i][j], dp[i][j], lse_s[r], delta_s[r], bh, q0 + r,
+        const Grad gr = score_grad<kMap>(s[i][j], dp[i][j], lse_s[r], delta_s[r], bh, q0 + r,
                                    k0 + c, s_q, s_kv, qscale, drop);
         ps[r * pld + c] = round_to(gr.pt, zero);
         dss[r * pld + c] = round_to(gr.ds, zero);
@@ -314,7 +315,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
            const float* delta, float* dq, void* dk, void* dv, int bh, int s_q, int s_kv, int d,
            float qscale, float scale, const DropoutMask& drop, cudaStream_t stream) {
   const size_t smem = smem_bytes<BK, BQ>(d);
-  auto kernel = flash_bwd_kernel<T, DMAX, BK, BQ, kDQ>;
+  auto kernel = flash_bwd_kernel<T, DMAX, BK, BQ, kDQ, false>;
+  if constexpr (kDQ) {  // the fused backward, the one with dropout
+    if (dropout_mapped(drop)) kernel = flash_bwd_kernel<T, DMAX, BK, BQ, kDQ, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -365,12 +369,13 @@ struct WgLayout {
 // accumulator layout, key row key0 + 16 warp + g + 8 h, query column q0 +
 // 8 i + 2 t + e).  Where the kernel tile lies inside one logical tile the
 // hash input is hoisted out of the loop; otherwise each element divides.
+template <bool kMap>
 __device__ __forceinline__ uint32_t keep_bits(const DropoutMask& m, int bh, int q0, int key0,
                                               int warp, int g, int t) {
   uint32_t bits = 0;
   const int r = 16 * warp + g;
   if (m.block_q % kWgBQ == 0 && m.block_k % 64 == 0) {
-    const uint32_t base = dropout_tile_base(m, bh, q0, key0) +
+    const uint32_t base = dropout_tile_base<kMap>(m, bh, q0, key0) +
                           static_cast<uint32_t>(2 * t * m.block_k + r);
     const uint32_t bk = static_cast<uint32_t>(m.block_k);
 #pragma unroll
@@ -382,7 +387,8 @@ __device__ __forceinline__ uint32_t keep_bits(const DropoutMask& m, int bh, int 
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int c = 8 * (j / 4) + 2 * t + j % 2;
-      bits |= static_cast<uint32_t>(dropout_keep(m, bh, q0 + c, key0 + r + 8 * ((j / 2) % 2)))
+      bits |= static_cast<uint32_t>(
+                  dropout_keep<kMap>(m, bh, q0 + c, key0 + r + 8 * ((j / 2) % 2)))
               << j;
     }
   }
@@ -514,7 +520,7 @@ struct WgTile {
   __device__ __forceinline__ bool valid(int j) const { return q0 + col(j) < s_q; }
 };
 
-template <int NCB, bool kSplit, bool kDQ>
+template <int NCB, bool kSplit, bool kDQ, bool kMap>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -622,7 +628,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         gemm_kmajor<NCB>(dpa, vs + wg * kTile, kv_cb, dos);
         sm90::wgmma_commit();
         uint32_t keep = ~0u;
-        if (drop.on) keep = keep_bits(drop, bh, q0, key0, warp, g, t);
+        if (drop.on) keep = keep_bits<kMap>(drop, bh, q0, key0, warp, g, t);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(sa);
         sm90::fence_regs(dpa);
@@ -698,7 +704,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         gemm_kmajor<NCB>(sa, ks, kv_cb, st);
         sm90::wgmma_commit();
         uint32_t keep = ~0u;
-        if (drop.on) keep = keep_bits(drop, bh, q0, k0, warp, g, t);
+        if (drop.on) keep = keep_bits<kMap>(drop, bh, q0, k0, warp, g, t);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(sa);
         const WgTile tile{rows + s * 2 * kWgBQ, rows + s * 2 * kWgBQ + kWgBQ, q0, k0, s_q, s_kv,
@@ -798,7 +804,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, 
                  const float* delta, float* dq, void* dk, void* dv, int bh, int s_q, int s_kv,
                  int d, float qscale, float scale, const DropoutMask& drop, cudaStream_t stream) {
   using L = WgLayout<NCB, kSplit, kDQ>;
-  auto kernel = flash_bwd_wgmma_kernel<NCB, kSplit, kDQ>;
+  auto kernel = flash_bwd_wgmma_kernel<NCB, kSplit, kDQ, false>;
+  if constexpr (kDQ) {  // the fused backward, the one with dropout
+    if (dropout_mapped(drop)) kernel = flash_bwd_wgmma_kernel<NCB, kSplit, kDQ, true>;
+  }
   if (bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
   // setmaxnreg moves registers between the warpgroups of a fixed pool: it
   // needs the launch to hold kLaunchRegs a thread, or the consumers would wait forever

@@ -130,7 +130,7 @@ __device__ __forceinline__ void red_dq(float* dq_head, const float (&acc)[NQ][4]
 // (key key0 + g + 8 (e / 2), query q0 + 8 n + 2 t + e % 2).  Where the slice
 // lies inside one logical tile the hash input is hoisted to it; otherwise
 // each element divides.  Both give dropout_keep's bits.
-template <int NS>
+template <int NS, bool kMap>
 __device__ __forceinline__ uint32_t pair_keep_bits(const DropoutMask& m, bool hoist, int bh,
                                                    int q0, int key0, int g, int t) {
   static_assert(NS <= 8, "one bit a lane's element in 32 bits");
@@ -139,7 +139,8 @@ __device__ __forceinline__ uint32_t pair_keep_bits(const DropoutMask& m, bool ho
   // registers the dK/dV sum needs
   if (hoist) {
     const uint32_t bk = static_cast<uint32_t>(m.block_k);
-    const uint32_t base = dropout_tile_base(m, bh, q0, key0) + static_cast<uint32_t>(2 * t) * bk +
+    const uint32_t base = dropout_tile_base<kMap>(m, bh, q0, key0) +
+                          static_cast<uint32_t>(2 * t) * bk +
                           static_cast<uint32_t>(g);
 #pragma unroll 4
     for (int j = 0; j < 4 * NS; ++j) {
@@ -149,8 +150,8 @@ __device__ __forceinline__ uint32_t pair_keep_bits(const DropoutMask& m, bool ho
   } else {
 #pragma unroll 1
     for (int j = 0; j < 4 * NS; ++j)
-      bits |= static_cast<uint32_t>(dropout_keep(m, bh, q0 + 8 * (j / 4) + 2 * t + (j & 1),
-                                                 key0 + g + 8 * ((j / 2) % 2)))
+      bits |= static_cast<uint32_t>(dropout_keep<kMap>(m, bh, q0 + 8 * (j / 4) + 2 * t + (j & 1),
+                                                       key0 + g + 8 * ((j / 2) % 2)))
               << j;
   }
   return bits;
@@ -212,7 +213,8 @@ __device__ __forceinline__ void dq_partial(float* dq_head, const float* pbufs, c
   }
 }
 
-template <int DMAX, int BQ, int NG, int MINB, int NQ, int MTB, int KU, bool kDQ, bool kDrop>
+template <int DMAX, int BQ, int NG, int MINB, int NQ, int MTB, int KU, bool kDQ, bool kDrop,
+          bool kMap>
 __global__ void __launch_bounds__(64 * NG, MINB)
     flash_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
@@ -287,7 +289,8 @@ __global__ void __launch_bounds__(64 * NG, MINB)
       // after the product: a word live through it costs the register its
       // peak lacks at two blocks an SM
       uint32_t keep = ~0u;
-      if constexpr (kDrop) keep = pair_keep_bits<NS>(drop, hoist, bh, q0, k0 + 16 * grp, g, t);
+      if constexpr (kDrop)
+        keep = pair_keep_bits<NS, kMap>(drop, hoist, bh, q0, k0 + 16 * grp, g, t);
       // P^T: keys past s_kv score -1e30, queries past s_q give 0
 #pragma unroll
       for (int n = 0; n < NS; ++n)
@@ -349,9 +352,12 @@ int launch_bwd_tf32(const void* q, const void* k, const void* v, const void* dou
                     cudaStream_t stream) {
   using L = BwdTf32<NG, BQ>;
   if (bh > 65535 || (!kDQ && drop.on)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_bwd_tf32_kernel<DMAX, BQ, NG, MINB, NQ, MTB, KU, kDQ, false>;
+  auto kernel = flash_bwd_tf32_kernel<DMAX, BQ, NG, MINB, NQ, MTB, KU, kDQ, false, false>;
   if constexpr (kDQ) {
-    if (drop.on) kernel = flash_bwd_tf32_kernel<DMAX, BQ, NG, MINB, NQ, MTB, KU, true, true>;
+    if (dropout_mapped(drop))
+      kernel = flash_bwd_tf32_kernel<DMAX, BQ, NG, MINB, NQ, MTB, KU, true, true, true>;
+    else if (drop.on)
+      kernel = flash_bwd_tf32_kernel<DMAX, BQ, NG, MINB, NQ, MTB, KU, true, true, false>;
   }
   const size_t smem = L::smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(

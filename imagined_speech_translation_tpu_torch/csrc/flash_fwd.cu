@@ -152,7 +152,7 @@ size_t smem_bytes(int d) {
           static_cast<size_t>(BK) * d + static_cast<size_t>(kBQ) * (BK + 1));
 }
 
-template <typename T, int DMAX, int BK>
+template <typename T, int DMAX, int BK, bool kMap>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
@@ -247,8 +247,9 @@ __global__ void __launch_bounds__(kThreads)
         float p = exp2f(s[i][j] - m_new);
         rs += p;  // the normalizer sums the undropped probabilities
         if (drop.on)
-          p = dropout_keep(drop, bh, q0 + ty + 16 * i, k0 + tx + 16 * j) ? p * drop.inv_keep
-                                                                         : 0.f;
+          p = dropout_keep<kMap>(drop, bh, q0 + ty + 16 * i, k0 + tx + 16 * j)
+                  ? p * drop.inv_keep
+                  : 0.f;
         ps[(ty + 16 * i) * pld + tx + 16 * j] = p;
       }
 #pragma unroll
@@ -296,7 +297,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int bh, int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<BK>(d);
-  auto kernel = flash_fwd_kernel<T, DMAX, BK>;
+  auto kernel = dropout_mapped(drop) ? flash_fwd_kernel<T, DMAX, BK, true>
+                                     : flash_fwd_kernel<T, DMAX, BK, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -349,7 +351,7 @@ __device__ __forceinline__ int col(int j, int t) { return 8 * (j / 4) + 2 * t + 
 // j / 32: element j, query row0 + 16 warp + g + 8 row_half(j), key key0 +
 // col(j)).  Where the 64 x BN kernel tile lies inside one logical tile the
 // hash input is hoisted out of the loop; otherwise each element divides.
-template <int BN>
+template <int BN, bool kMap>
 __device__ __forceinline__ void keep_bits(uint32_t (&bits)[BN / 64], const DropoutMask& m,
                                           int bh, int row0, int key0, int warp, int g, int t) {
   const int r = 16 * warp + g;
@@ -358,7 +360,7 @@ __device__ __forceinline__ void keep_bits(uint32_t (&bits)[BN / 64], const Dropo
   if (m.block_q % 64 == 0 && m.block_k % BN == 0) {
     const uint32_t bk = static_cast<uint32_t>(m.block_k);
     const uint32_t base =
-        dropout_tile_base(m, bh, row0, key0) + static_cast<uint32_t>(r) * bk + 2 * t;
+        dropout_tile_base<kMap>(m, bh, row0, key0) + static_cast<uint32_t>(r) * bk + 2 * t;
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) {
       const uint32_t off = 8 * row_half(j) * bk + 8 * (j / 4) + j % 2;
@@ -368,7 +370,7 @@ __device__ __forceinline__ void keep_bits(uint32_t (&bits)[BN / 64], const Dropo
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) {
       bits[j / 32] |= static_cast<uint32_t>(
-                          dropout_keep(m, bh, row0 + r + 8 * row_half(j), key0 + col(j, t)))
+                          dropout_keep<kMap>(m, bh, row0 + r + 8 * row_half(j), key0 + col(j, t)))
                       << (j % 32);
     }
   }
@@ -455,7 +457,7 @@ __device__ __forceinline__ void rescale(float (&acc)[NCB][32], const float (&alp
     for (int j = 0; j < 32; ++j) acc[cb][j] *= alpha[row_half(j)];
 }
 
-template <int NCB>
+template <int NCB, bool kMap>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -563,7 +565,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   sm90::wgmma_fence();
   start_qk<NCB, BN>(sa, qs, k_tiles(0));
   sm90::wgmma_commit();
-  if (drop.on) keep_bits<BN>(keep, drop, bh, row0, 0, warp, g, t);
+  if (drop.on) keep_bits<BN, kMap>(keep, drop, bh, row0, 0, warp, g, t);
   sm90::wgmma_wait<0>();
   sm90::fence_regs(sa);
   release_tile(0, 0);
@@ -579,7 +581,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     sm90::wgmma_commit();
     start_pv<NCB, BN>(acc, pf, v_tiles(it - 1));
     sm90::wgmma_commit();
-    if (drop.on) keep_bits<BN>(keep, drop, bh, row0, BN * it, warp, g, t);
+    if (drop.on) keep_bits<BN, kMap>(keep, drop, bh, row0, BN * it, warp, g, t);
     sm90::wgmma_wait<1>();  // S of tile it
     sm90::fence_regs(sa);
     release_tile(0, it);
@@ -632,7 +634,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
                  int s_q, int s_kv, int d, float qscale, const DropoutMask& drop,
                  cudaStream_t stream) {
   using L = FwdTiles<NCB>;
-  auto kernel = flash_fwd_wgmma_kernel<NCB>;
+  auto kernel = dropout_mapped(drop) ? flash_fwd_wgmma_kernel<NCB, true>
+                                     : flash_fwd_wgmma_kernel<NCB, false>;
   const long long n_qt = (s_q + kWgBQ - 1) / kWgBQ;
   if (n_qt * bh > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   // setmaxnreg moves registers between the warpgroups of a fixed pool: it
@@ -676,7 +679,7 @@ size_t fwd_tf32_smem_bytes(int d) {
 // probabilities to multiply V with (dropped and scaled when dropout is on).
 // Sets alpha, the factors that rescale the rows' earlier output.  The caller
 // runs it only where key0 < s_kv, so every row max is finite.
-template <int NS>
+template <int NS, bool kMap>
 __device__ __forceinline__ void softmax_tf32(float (&s)[NS][4], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int key0, int s_kv,
                                              float qscale, const DropoutMask& drop, bool hoist,
@@ -706,7 +709,7 @@ __device__ __forceinline__ void softmax_tf32(float (&s)[NS][4], float (&m)[2], f
   // element; both give dropout_keep's bits
   uint32_t base = 0;
   if (drop.on && hoist)
-    base = dropout_tile_base(drop, bh, row0, key0) +
+    base = dropout_tile_base<kMap>(drop, bh, row0, key0) +
            static_cast<uint32_t>(g) * static_cast<uint32_t>(drop.block_k) + 2 * t;
 #pragma unroll
   for (int n = 0; n < NS; ++n)
@@ -719,7 +722,8 @@ __device__ __forceinline__ void softmax_tf32(float (&s)[NS][4], float (&m)[2], f
         const bool keep =
             hoist ? dropout_keep_at(drop, base,
                                     8 * h * static_cast<uint32_t>(drop.block_k) + 8 * n + (e & 1))
-                  : dropout_keep(drop, bh, row0 + g + 8 * h, key0 + 8 * n + 2 * t + (e & 1));
+                  : dropout_keep<kMap>(drop, bh, row0 + g + 8 * h,
+                                       key0 + 8 * n + 2 * t + (e & 1));
         p = keep ? p * drop.inv_keep : 0.f;
       }
       s[n][e] = p;
@@ -734,7 +738,7 @@ __device__ __forceinline__ void softmax_tf32(float (&s)[NS][4], float (&m)[2], f
 // rows.  Per key slice: S = Q K^T (scores_3xtf32, both K-major by ldmatrix),
 // the online softmax in the accumulator layout, O += P V (grads_3xtf32, P
 // fed from the S registers as they lie, V read MN-major at rows 2t, 2t + 1).
-template <int DMAX, int NR, int BK, int STAGES>
+template <int DMAX, int NR, int BK, int STAGES, bool kMap>
 __global__ void __launch_bounds__(64 * NR, 1)
     flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
@@ -798,7 +802,7 @@ __global__ void __launch_bounds__(64 * NR, 1)
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     scores_3xtf32<NS>(s, qs + wrow * ld, ks, ld, d, lane);  // S = Q K^T
     float alpha[2];
-    softmax_tf32<NS>(s, m, l, alpha, k0, s_kv, qscale, drop, hoist, bh, q0 + wrow, g, t);
+    softmax_tf32<NS, kMap>(s, m, l, alpha, k0, s_kv, qscale, drop, hoist, bh, q0 + wrow, g, t);
 #pragma unroll
     for (int c = 0; c < NO; ++c) {
       acc[c][0] *= alpha[0];
@@ -869,7 +873,8 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse
   const long long n_qt = (s_q + 16 * NR - 1) / (16 * NR);
   if (n_qt * bh > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_tf32_smem_bytes<NR, BK, STAGES>(d);
-  auto kernel = flash_fwd_tf32_kernel<DMAX, NR, BK, STAGES>;
+  auto kernel = dropout_mapped(drop) ? flash_fwd_tf32_kernel<DMAX, NR, BK, STAGES, true>
+                                     : flash_fwd_tf32_kernel<DMAX, NR, BK, STAGES, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -923,17 +928,21 @@ extern "C" {
 // device in one dtype (0 = float32, 1 = bfloat16).  lse: float32 (bh, s_q).
 // qscale = softmax scale * log2(e).  Dropout: dropout != 0 applies the keep
 // mask of dropout_mask.cuh for (seed, threshold, block_q, block_k) and scales
-// kept probabilities by inv_keep.  Returns the cudaError_t of the launch.
+// kept probabilities by inv_keep; the mask of local head bh is that of the
+// global head of (b_local, b_global, b_offset, heads) (dropout_global_head;
+// b_local == b_global: bh itself).  Returns the cudaError_t of the launch.
 int ist_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                   int bh, int s_q, int s_kv, int d, float qscale, int dtype, int dropout,
                   int seed, unsigned threshold, int block_q, int block_k, float inv_keep,
-                  void* stream) {
+                  int b_local, int b_global, int b_offset, int heads, void* stream) {
   if (bh < 1 || s_q < 1 || s_kv < 1 || d < 1 || d > 256 ||
-      (s_q + kBQ - 1) / kBQ > 65535 || (dropout && (block_q < 1 || block_k < 1))) {
+      (s_q + kBQ - 1) / kBQ > 65535 || (dropout && (block_q < 1 || block_k < 1)) ||
+      !dropout_heads_valid(bh, b_local, b_global, b_offset, heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DropoutMask drop = make_dropout_mask(dropout, seed, threshold, block_q, block_k, inv_keep);
+  const DropoutMask drop = make_dropout_mask(dropout, seed, threshold, block_q, block_k, inv_keep,
+                                             b_local, b_global, b_offset, heads);
   if (dtype == 0) return dispatch_f32(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
   if (dtype == 1) return dispatch_bf16(q, k, v, o, lse, bh, s_q, s_kv, d, qscale, drop, st);
   return static_cast<int>(cudaErrorInvalidValue);

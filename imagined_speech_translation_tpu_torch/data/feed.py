@@ -8,19 +8,24 @@ pinned host memory on a side CUDA stream, and the consumer's stream waits for
 that copy before it gets the batch.
 
 The trainer does not use this feed (it reads ``dataset.get_batch`` between
-steps, as the JAX trainer does).  ``sharding=`` has no meaning on one card
-and is refused: multi-device placement is ROADMAP item 1.7.
+steps, as the JAX trainer does).  ``sharding=`` takes a mesh
+(``parallel.make_mesh``): on a training mesh each rank gets its rows of every
+batch, on its device; on a serving mesh each batch becomes a list of
+shards, each on its device.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import queue
 import threading
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import Mesh, shard_batch, split_batch
 
 
 def batch_iterator(
@@ -91,11 +96,17 @@ def device_prefetch(
     *,
     size: int = 2,
     device: torch.device | str | None = None,
-    sharding=None,
+    sharding: Mesh | None = None,
 ) -> Iterator:
     """Keep ``size`` batches in flight on ``device`` (double buffering by
     default); yields each batch with its numpy arrays as tensors there.
     ``device`` defaults to the card; ``"cpu"`` yields CPU tensors.
+
+    With ``sharding`` a training mesh, each batch (a dict) is cut to this
+    rank's rows (``parallel.mesh.shard_batch``, leading axis) before it is
+    placed on ``device``, this rank's device; a serving mesh yields the list
+    of the batch's shards (``split_batch``), shard ``i`` on the mesh's device
+    ``i`` (``device`` is then not taken).
 
     On the card each array is pinned and copied on a side stream; before a
     batch is yielded, the current stream waits for that batch's copies (an
@@ -103,9 +114,32 @@ def device_prefetch(
     caching allocator does not reuse the memory while the consumer's work is
     in flight.  The arguments are checked when it is called, not at the
     first batch."""
-    if sharding is not None:
-        raise ValueError("device_prefetch(sharding=...) places batches across devices; the "
-                         "port feeds one device: multi-device is ROADMAP item 1.7, not ported")
+    if sharding is not None and not isinstance(sharding, Mesh):
+        raise TypeError(f"sharding= takes a mesh of parallel.make_mesh, not {sharding!r}")
+    if sharding is not None and not sharding.over_ranks:
+        if device is not None:
+            raise ValueError("a serving mesh places each shard on its own device; "
+                             "pass no device")
+        feeds = [_prefetch_one(device=d) for d in sharding.devices]
+        cut = functools.partial(split_batch, sharding)
+
+        def place_shards(batch):
+            return [place(shard) for (place, _), shard in zip(feeds, cut(batch))]
+
+        def hand_over_shards(placed):
+            return [hand_over(p) for (_, hand_over), p in zip(feeds, placed)]
+
+        return _pipeline(iterator, size, place_shards, hand_over_shards)
+    place, hand_over = _prefetch_one(device)
+    if sharding is None:
+        return _pipeline(iterator, size, place, hand_over)
+    return _pipeline(iterator, size, lambda batch: place(shard_batch(sharding, batch)),
+                     hand_over)
+
+
+def _prefetch_one(device):
+    """``(place, hand_over)`` of one device: ``place(batch)`` starts the
+    copies, ``hand_over(placed)`` makes the current stream wait for them."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: pass device='cpu' to feed the CPU")
@@ -147,6 +181,12 @@ def device_prefetch(
             for t in copied:
                 t.record_stream(consumer)
             return batch
+
+    return place, hand_over
+
+
+def _pipeline(iterator, size: int, place, hand_over) -> Iterator:
+    """``size`` placed batches ahead of the one handed over."""
 
     def gen():
         buf = collections.deque()

@@ -28,6 +28,7 @@ from torch import nn
 
 from ..config import BartConfig
 from ..ops import dot_product_attention, dropout
+from ..parallel import data_parallel
 
 
 def pseudo_encoder_sequence(proj_eeg: torch.Tensor, length: int) -> torch.Tensor:
@@ -200,7 +201,9 @@ def cross_entropy_loss(logits, labels, *, label_smoothing: float = 0.0):
     """Token-level CE with a ``-100`` ignore index (HF semantics: the mean
     over non-ignored tokens, divided by ``max(n_valid, 1)``), on float32
     log-probabilities, with optional label smoothing.  Returns
-    ``(loss, n_valid)``."""
+    ``(loss, n_valid)``.  Under data parallelism ``n_valid`` is the count
+    over every rank's rows, so ``loss`` is this rank's share of the global
+    batch's mean (``parallel.data_parallel``)."""
     valid = labels != -100
     safe = torch.where(valid, labels, 0)
     logp = F.log_softmax(logits.float(), dim=-1)
@@ -209,5 +212,5 @@ def cross_entropy_loss(logits, labels, *, label_smoothing: float = 0.0):
         smooth = -logp.mean(dim=-1)
         nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     nll = torch.where(valid, nll, 0.0)
-    n = valid.sum().clamp_min(1)
-    return nll.sum() / n, valid.sum()
+    n_valid = data_parallel.sum_over_ranks(valid.sum())
+    return nll.sum() / n_valid.clamp_min(1), n_valid

@@ -20,6 +20,10 @@ Train mode follows flax's ``train=True``: BatchNorm normalizes with the
 batch's statistics and updates its running ones (``self.training``), and
 every dropout of the JAX module draws from the ``generator`` passed to
 ``forward`` (``None`` in eval mode: dropout is the identity).
+
+Under data parallelism (``parallel.data_parallel``) BatchNorm's train-mode
+statistics are the global batch's, and the region-stacked tensors tell the
+dropouts that their batch rows lie on dimension 1.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 
 from ..config import RegionEncoderConfig
 from ..ops import dot_product_attention, dropout
+from ..parallel import data_parallel
 
 
 def gelu(x):
@@ -101,7 +106,9 @@ class RegionNorm(nn.Module):
     the biased variance where ``F.batch_norm`` would store the unbiased one.
     The running statistics enter that update in the activations' dtype, as
     the JAX train step casts them to bfloat16 under mixed precision, and
-    are stored back in float32."""
+    are stored back in float32.  Under data parallelism the sums of x and
+    x^2 and the count are all-reduced (with gradient) first, so every rank
+    normalizes with, and stores, the global batch's statistics."""
 
     momentum = 0.9
 
@@ -126,8 +133,15 @@ class RegionNorm(nn.Module):
                 training=False, eps=self.eps,
             )
         xf = x.float()
-        mean = xf.mean(dim=(0, 2))
-        var = ((xf * xf).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+        if data_parallel.active() is None:
+            mean = xf.mean(dim=(0, 2))
+            var = ((xf * xf).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+        else:
+            count = xf.new_full((xf.shape[1],), xf.shape[0] * xf.shape[2])
+            sums = data_parallel.all_reduce_sum(
+                torch.stack([xf.sum(dim=(0, 2)), (xf * xf).sum(dim=(0, 2)), count]))
+            mean = sums[0] / sums[2]
+            var = (sums[1] / sums[2] - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
                 old = buf.flatten().to(x.dtype)
@@ -184,7 +198,8 @@ class MultiHeadAttention(nn.Module):
                  seq_shards: int = 1, dropout: float = 0.0):
         super().__init__()
         if seq_shards != 1:
-            raise NotImplementedError("seq_shards > 1 (ring attention) is not ported")
+            raise NotImplementedError("seq_shards > 1 (ring attention over a sequence mesh) is "
+                                      "not ported: it is ROADMAP item 1.7b")
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
         self.num_heads, self.dropout = num_heads, dropout
@@ -298,6 +313,13 @@ class RegionConvAttentionEncoder(nn.Module):
         x = self._stem(x.reshape(b, r * c, t), generator)  # (B, R*C, T)
         # (B, R*C, T) -> (R, B, T, C): feature-last tokens, region leading
         x = x.reshape(b, r, self.c_out, t).permute(1, 0, 3, 2)
+        with data_parallel.batch_on(1):
+            return self._tokens(x, generator)
+
+    def _tokens(self, x, generator):
+        """The region-stacked part of :meth:`forward`: ``(R, B, T, C)`` stem
+        tokens -> ``(R, B, hidden_dim)``."""
+        r, b = x.shape[:2]
         if self.cfg.cnn_only:
             return self._cnn_only_pool(x, generator)
         cfg = self.cfg

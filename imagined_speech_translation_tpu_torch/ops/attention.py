@@ -10,13 +10,17 @@ plain twin for a tensor on the CPU (``ops.flash_attention``).
 Attention-probability dropout takes a CPU ``torch.Generator``: the flash
 route draws its int32 kernel seed from it, the softmax route a Bernoulli
 mask (``ops.random``).  As in the JAX package, the two routes draw
-different bits.
+different bits.  Under data parallelism both draw the single-device step's
+bits for this rank's rows: the attention batch is ``fold * rows`` (the
+regions fold into it), and the flash kernels map their heads
+(``parallel.data_parallel.dropout_rows``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import data_parallel
 from .flash_attention import flash_attention
 from .random import bernoulli_keep, draw_seed
 
@@ -51,6 +55,7 @@ def dot_product_attention(q, k, v, mask=None, *, scale: float | None = None,
         raise ValueError("dropout_rate > 0 requires a generator")
     if flash_route(q, k, mask):
         seed = draw_seed(generator) if dropout_rate > 0.0 else None
+        rows = data_parallel.dropout_rows(q.shape[0]) if dropout_rate > 0.0 else None
         return flash_attention(q, k, v, scale=scale, dropout_rate=dropout_rate,
-                               dropout_seed=seed)[0]
+                               dropout_seed=seed, dropout_rows=rows)[0]
     return _softmax_attention(q, k, v, mask, scale, dropout_rate, generator)

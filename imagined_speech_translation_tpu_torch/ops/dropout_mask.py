@@ -11,6 +11,13 @@ the card the port's masks equal the oracle's bit for bit.
 
 The hash works in unsigned 32-bit arithmetic that wraps; the plain version
 here computes in int64 and masks to 32 bits after every multiply and add.
+
+Under data parallelism a rank attends over its own rows of the batch.  Its
+heads are ``(fold, b_local, heads)`` flattened (the fold is the four regions
+of the region encoders, 1 elsewhere), and ``rows = (b_local, b_global,
+b_offset)`` makes each local head draw the mask of the head the single-device
+launch gives the same scores: ``(r * b_global + b_offset + b) * heads + h``
+(:func:`global_head`).  Without ``rows`` (one device) the head is its own.
 """
 
 from __future__ import annotations
@@ -56,6 +63,31 @@ def dropout_blocks(bh: int, s_q: int, s_kv: int, dtype: torch.dtype,
     return block_q, block_k
 
 
+def global_head(bh, rows: tuple[int, int, int] | None, heads: int):
+    """The single-device head whose mask local head ``bh`` (an int or an
+    int64 tensor) draws, for ``rows = (b_local, b_global, b_offset)``."""
+    if rows is None:
+        return bh
+    b_local, b_global, b_offset = rows
+    rb, h = bh // heads, bh % heads
+    r, b = rb // b_local, rb % b_local
+    return (r * b_global + b_offset + b) * heads + h
+
+
+def check_rows(bh: int, rows: tuple[int, int, int] | None, heads: int) -> int:
+    """The single-device launch's head count for a launch of ``bh`` heads
+    over ``rows``; raises ``ValueError`` where the rows cannot be this
+    launch's (the kernels' ``dropout_heads_valid``)."""
+    if rows is None:
+        return bh
+    b_local, b_global, b_offset = rows
+    if not (heads >= 1 and b_local >= 1 and 0 <= b_offset <= b_global - b_local
+            and bh % (b_local * heads) == 0):
+        raise ValueError(f"dropout rows {rows} with {heads} heads do not fit a launch of "
+                         f"{bh} heads")
+    return bh // b_local * b_global
+
+
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """``x * c`` modulo 2**32 for uint32 ``x`` in int64, without overflowing
     int64: the constant is split into its 16-bit halves."""
@@ -79,7 +111,8 @@ def _head_keep_mask(seed: int, bh: int, row0: int, n_rows: int, col0: int, n_col
                     block_q: int, block_k: int, rate: float, device) -> torch.Tensor:
     """Head ``bh``'s boolean keep-mask (True = keep) over rows
     ``row0 .. row0 + n_rows`` and columns ``col0 .. col0 + n_cols``; rows and
-    columns past the sequence extend the last tile as the kernels see it."""
+    columns past the sequence extend the last tile as the kernels see it.
+    ``bh`` is a head of the single-device launch (:func:`global_head`)."""
     rows = torch.arange(row0, row0 + n_rows, device=device, dtype=torch.int64)[:, None]
     cols = torch.arange(col0, col0 + n_cols, device=device, dtype=torch.int64)[None, :]
     index = (rows % block_q) * block_k + cols % block_k
@@ -89,39 +122,53 @@ def _head_keep_mask(seed: int, bh: int, row0: int, n_rows: int, col0: int, n_col
 
 def dropout_keep_mask_reference(
     seed: int, b: int, h: int, s_q: int, s_kv: int, *, block_q: int, block_k: int,
-    rate: float, device: torch.device | str = "cpu",
+    rate: float, device: torch.device | str = "cpu", rows: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """The dense ``(b, h, s_q, s_kv)`` boolean keep-mask (True = keep) that
-    the kernels draw for ``seed``: JAX's ``dropout_keep_mask_reference``.
-    Built one head at a time to bound the int64 temporaries."""
+    the kernels draw for ``seed``: JAX's ``dropout_keep_mask_reference``;
+    with ``rows``, the mask of a rank's launch (:func:`global_head`).  Built
+    one head at a time to bound the int64 temporaries."""
+    check_rows(b * h, rows, h)
     kw = dict(block_q=block_q, block_k=block_k, rate=rate, device=device)
     out = torch.empty((b * h, s_q, s_kv), dtype=torch.bool, device=device)
     for bh in range(b * h):
-        out[bh] = _head_keep_mask(seed, bh, 0, s_q, 0, s_kv, **kw)
+        out[bh] = _head_keep_mask(seed, global_head(bh, rows, h), 0, s_q, 0, s_kv, **kw)
     return out.reshape(b, h, s_q, s_kv)
 
 
 def tile_keep_mask_reference(seed: int, bh: int, qi: int, ki: int, *, block_q: int,
-                             block_k: int, rate: float, device="cpu") -> torch.Tensor:
+                             block_k: int, rate: float, device="cpu",
+                             rows: tuple[int, int, int] | None = None,
+                             heads: int = 1) -> torch.Tensor:
     """Plain twin of the probe kernel: tile ``(qi, ki)`` of head ``bh`` as
-    float32 ``(block_q, block_k)``, 1 = keep."""
-    return _head_keep_mask(seed, bh, qi * block_q, block_q, ki * block_k, block_k,
-                           block_q=block_q, block_k=block_k, rate=rate, device=device).float()
+    float32 ``(block_q, block_k)``, 1 = keep; with ``rows``, ``bh`` is a
+    local head of a launch with ``heads`` heads a row."""
+    return _head_keep_mask(seed, global_head(bh, rows, heads), qi * block_q, block_q,
+                           ki * block_k, block_k, block_q=block_q, block_k=block_k, rate=rate,
+                           device=device).float()
+
+
+def rows_args(rows: tuple[int, int, int] | None, heads: int) -> tuple[int, int, int, int]:
+    """The kernels' ``(b_local, b_global, b_offset, heads)``; ``(1, 1, 0,
+    1)`` is the identity."""
+    return (1, 1, 0, 1) if rows is None else (*rows, heads)
 
 
 def tile_keep_mask(seed: int, bh: int, qi: int, ki: int, *, block_q: int, block_k: int,
-                   rate: float, device="cuda") -> torch.Tensor:
+                   rate: float, device="cuda", rows: tuple[int, int, int] | None = None,
+                   heads: int = 1) -> torch.Tensor:
     """Tile ``(qi, ki)`` of head ``bh``'s keep-mask as float32, written by the
     probe kernel on a CUDA ``device`` (the plain twin on the CPU)."""
     device = torch.device(device)
+    kw = dict(block_q=block_q, block_k=block_k, rate=rate, rows=rows, heads=heads)
     if device.type == "cpu":
-        return tile_keep_mask_reference(seed, bh, qi, ki, block_q=block_q, block_k=block_k,
-                                        rate=rate)
+        return tile_keep_mask_reference(seed, bh, qi, ki, **kw)
     if device.type != "cuda":
         raise ValueError(f"tile_keep_mask runs on a CUDA device or the CPU, not {device}")
+    check_rows(0, rows, heads)
     out = torch.empty((block_q, block_k), dtype=torch.float32, device=device)
     DROPOUT_MASK.launch(
         out.data_ptr(), bh, qi, ki, block_q, block_k, int(seed), dropout_threshold(rate),
-        torch.cuda.current_stream(device).cuda_stream,
+        *rows_args(rows, heads), torch.cuda.current_stream(device).cuda_stream,
     )
     return out

@@ -23,7 +23,13 @@ import math
 import torch
 
 from .._kernels import FLASH_BWD, FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD
-from .dropout_mask import dropout_blocks, dropout_keep_mask_reference, dropout_threshold
+from .dropout_mask import (
+    check_rows,
+    dropout_blocks,
+    dropout_keep_mask_reference,
+    dropout_threshold,
+    rows_args,
+)
 
 LOG2E = math.log2(math.e)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,20 +37,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def flash_attention_reference(q, k, v, *, scale: float | None = None, dropout_rate: float = 0.0,
                               dropout_seed: int = 0, block_q: int | None = None,
-                              block_k: int | None = None):
+                              block_k: int | None = None, dropout_rows=None):
     """Plain twin of the kernels over ``(B, H, S, D)``: logits in float32,
     softmax, kept probabilities scaled by ``1 / (1 - rate)`` and dropped ones
     zeroed, cast back to ``v``'s dtype.  Returns ``(out, lse)`` with ``lse``
-    the base-2 logsumexp of the scaled scores, float32 ``(B*H, S_q)``."""
+    the base-2 logsumexp of the scaled scores, float32 ``(B*H, S_q)``.
+    ``dropout_rows`` as in :func:`flash_attention`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale
     probs = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0:
         b, h, s_q, s_kv = logits.shape
-        block_q, block_k = dropout_blocks(b * h, s_q, s_kv, q.dtype, block_q, block_k)
+        block_q, block_k = dropout_blocks(check_rows(b * h, dropout_rows, h), s_q, s_kv,
+                                          q.dtype, block_q, block_k)
         keep = dropout_keep_mask_reference(dropout_seed, b, h, s_q, s_kv, block_q=block_q,
-                                           block_k=block_k, rate=dropout_rate, device=q.device)
+                                           block_k=block_k, rate=dropout_rate, device=q.device,
+                                           rows=dropout_rows)
         probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
     out = torch.matmul(probs.to(v.dtype), v)
     lse = torch.logsumexp(logits, dim=-1).reshape(-1, q.shape[-2]) * LOG2E
@@ -72,13 +81,16 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention kernel takes contiguous q/k/v")
 
 
-def _dropout_args(drop):
+def _dropout_args(drop, heads: int):
     """The kernels' dropout arguments for ``drop = (rate, seed, block_q,
-    block_k)``: on-flag, seed, threshold, tiles and 1 / (1 - rate)."""
-    rate, seed, block_q, block_k = drop
+    block_k[, rows])`` over ``heads`` heads a row: on-flag, seed, threshold,
+    tiles, 1 / (1 - rate) and the head mapping of ``rows`` (none without)."""
+    rate, seed, block_q, block_k, *rows = drop
+    rows = rows[0] if rows else None
     if rate == 0.0:
-        return 0, 0, 0, 0, 0, 1.0
-    return 1, seed, dropout_threshold(rate), block_q, block_k, 1.0 / (1.0 - rate)
+        return 0, 0, 0, 0, 0, 1.0, *rows_args(None, 1)
+    return (1, seed, dropout_threshold(rate), block_q, block_k, 1.0 / (1.0 - rate),
+            *rows_args(rows, heads))
 
 
 def _forward(q, k, v, scale, drop):
@@ -87,8 +99,8 @@ def _forward(q, k, v, scale, drop):
     lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
     FLASH_FWD.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b * h, s_q, k.shape[2], d, float(scale) * LOG2E, _DTYPES[q.dtype], *_dropout_args(drop),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b * h, s_q, k.shape[2], d, float(scale) * LOG2E, _DTYPES[q.dtype],
+        *_dropout_args(drop, h), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out, lse
 
@@ -122,7 +134,8 @@ def _check_backward(q, k, v, dout, lse, delta) -> None:
 def backward_fused(q, k, v, dout, lse, delta, scale, drop):
     """dQ, dK, dV from the fused kernel over contiguous ``(B, H, S, D)``
     ``q, k, v, dout`` of one dtype on the card, ``lse`` and ``delta``
-    float32 ``(B*H, S_q)``, and ``drop = (rate, seed, block_q, block_k)``."""
+    float32 ``(B*H, S_q)``, and ``drop = (rate, seed, block_q, block_k[,
+    rows])`` (``rows`` as :func:`flash_attention`'s ``dropout_rows``)."""
     _check_backward(q, k, v, dout, lse, delta)
     b, h, s_q, d = q.shape
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -131,7 +144,7 @@ def backward_fused(q, k, v, dout, lse, delta, scale, drop):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b * h, s_q, k.shape[2], d, float(scale) * LOG2E, float(scale), _DTYPES[q.dtype],
-        *_dropout_args(drop), torch.cuda.current_stream(q.device).cuda_stream,
+        *_dropout_args(drop, h), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dq.to(q.dtype), dk, dv
 
@@ -198,30 +211,37 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, scale: float | None = None, dropout_rate: float = 0.0,
                     dropout_seed: int | None = None, block_q: int | None = None,
-                    block_k: int | None = None):
+                    block_k: int | None = None,
+                    dropout_rows: tuple[int, int, int] | None = None):
     """Unmasked attention over ``(B, H, S, D)`` with optional attention-
     probability dropout; returns ``(out, lse)`` as
     :func:`flash_attention_reference` does, differentiable in ``q, k, v``.
 
     ``dropout_seed`` (an int32) is required when ``dropout_rate > 0``; the
     mask is defined on the logical tiles ``block_q x block_k``, by default
-    those the JAX package picks (:func:`~.dropout_mask.dropout_blocks`).  A
-    CUDA tensor launches the kernels (or raises); a CPU tensor takes the
-    plain twin."""
+    those the JAX package picks (:func:`~.dropout_mask.dropout_blocks`).
+    ``dropout_rows = (b_local, b_global, b_offset)`` says that ``q``'s batch
+    holds rows ``b_offset ..`` of a global batch of ``b_global`` (after a
+    leading fold, :mod:`~.dropout_mask`): each head then draws the mask of
+    its head in the single-device launch, and the tile-id limit binds the
+    global head count.  A CUDA tensor launches the kernels (or raises); a CPU
+    tensor takes the plain twin."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    drop = (0.0, 0, 0, 0)
+    drop = (0.0, 0, 0, 0, None)
     if dropout_rate > 0.0:
         b, h, s_q, _ = q.shape
-        block_q, block_k = dropout_blocks(b * h, s_q, k.shape[2], q.dtype, block_q, block_k)
-        drop = (float(dropout_rate), int(dropout_seed), block_q, block_k)
+        block_q, block_k = dropout_blocks(check_rows(b * h, dropout_rows, h), s_q, k.shape[2],
+                                          q.dtype, block_q, block_k)
+        drop = (float(dropout_rate), int(dropout_seed), block_q, block_k, dropout_rows)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale=scale, dropout_rate=dropout_rate,
-                                         dropout_seed=drop[1], block_q=block_q, block_k=block_k)
+                                         dropout_seed=drop[1], block_q=block_q, block_k=block_k,
+                                         dropout_rows=drop[4])
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, float(scale), drop)

@@ -12,8 +12,9 @@ checkpoint is a directory holding
 * ``meta.json``: the trainer's host-side metadata, as in the JAX package.
 
 A restore loads onto the target state's device and is strict: an entry that
-is missing, extra, or of another shape or dtype raises.  One process writes;
-multi-device training is not ported.
+is missing, extra, or of another shape or dtype raises.  Across ranks the
+primary writes, between barriers, and removes old epochs; every rank
+restores onto its own device.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..parallel.distributed import is_primary, sync_hosts
 from .optimizer import FusedAdamWState
 from .train_state import TrainState
 
@@ -40,17 +42,20 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def _save(self, name: str, state: TrainState, meta: dict[str, Any]):
         path = self.dir / name
-        if path.exists():
+        if is_primary() and path.exists():
             shutil.rmtree(path)
-        path.mkdir()
-        opt = state.opt_state
-        torch.save({
-            "step": int(state.step),
-            "module": state.module.state_dict(),
-            "opt_state": {"count": int(opt.count), "mu": opt.mu, "nu": opt.nu},
-            "loss_weights": {k: float(v) for k, v in state.loss_weights.items()},
-        }, path / "state.pt")
-        (path / "meta.json").write_text(json.dumps(meta, default=_js))
+        sync_hosts("ckpt_clear")
+        if is_primary():
+            path.mkdir()
+            opt = state.opt_state
+            torch.save({
+                "step": int(state.step),
+                "module": state.module.state_dict(),
+                "opt_state": {"count": int(opt.count), "mu": opt.mu, "nu": opt.nu},
+                "loss_weights": {k: float(v) for k, v in state.loss_weights.items()},
+            }, path / "state.pt")
+            (path / "meta.json").write_text(json.dumps(meta, default=_js))
+        sync_hosts("ckpt_done")
 
     def save_best(self, state, meta):
         self._save("best_model", state, meta)
@@ -67,6 +72,8 @@ class CheckpointManager:
                       key=lambda p: int(p.name.rsplit("_", 1)[1]))
 
     def _gc_epochs(self):
+        if not is_primary():
+            return
         for p in self._epoch_dirs()[: -self.max_epoch_keep]:
             shutil.rmtree(p, ignore_errors=True)
 

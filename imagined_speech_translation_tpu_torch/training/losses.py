@@ -15,6 +15,11 @@ Port of ``imagined_speech_translation_tpu.training.losses``:
 the learnable heads (:class:`CompositeLossHeads`), the BoW vocabulary pick
 and the host-side :class:`AdaptiveLossScheduler`, which is plain Python and
 copied unchanged.
+
+Under data parallelism (``parallel.data_parallel``) each component is this
+rank's share of the global micro-batch's value, so the shares of the ranks
+sum to it: the batch-coupled terms (alignment, diversity, variance) run on
+the rows of every rank and count ``1 / world``, as does the BoW mean.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch import nn
 
 from ..config import LossConfig
 from ..models.bart import cross_entropy_loss
+from ..parallel import data_parallel
 
 
 # the training package's name for the same function
@@ -113,10 +119,15 @@ def composite_loss(*, logits, labels, eeg_feat, decoder_hidden, decoder_mask, he
     text_feat = (decoder_hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
     eeg_p, txt_p, bow_logits = heads_apply(eeg_feat, text_feat)
 
-    align = _info_nce(eeg_p, txt_p, cfg.contrastive_tau)
-    bow = optax_sigmoid_bce(bow_logits, _bow_multi_hot(labels, bow_indices, logits.shape[-1]))
-    div = _diversity_loss(eeg_feat)
-    var = _variance_loss(eeg_feat)
+    dp = data_parallel.active()
+    world = 1 if dp is None else dp.world
+    gather = data_parallel.gather_rows
+    align = _info_nce(gather(eeg_p), gather(txt_p), cfg.contrastive_tau) / world
+    bow = optax_sigmoid_bce(bow_logits,
+                            _bow_multi_hot(labels, bow_indices, logits.shape[-1])) / world
+    feat = gather(eeg_feat)
+    div = _diversity_loss(feat) / world
+    var = _variance_loss(feat) / world
     total = (weights["ce"] * ce + weights["align"] * align + weights["bow"] * bow
              + weights["div"] * div + weights["var"] * var)
     return total, {"loss_ce": ce, "loss_align": align, "loss_bow": bow, "loss_div": div,

@@ -20,18 +20,30 @@ numerics:
 The eval step runs the float32 parameters on float32 EEG whatever
 ``training.mixed_precision`` says, as the JAX package's does.
 
+With ``data_parallel`` (a ``parallel.data_parallel.DataParallel``) each rank
+runs the step on its rows of the window under that context, so its loss is
+its share of the global micro-batch's (dropout bits, BatchNorm statistics and
+batch-coupled losses included).  After the accumulation and the float32
+``/ accum`` the gradients are summed over the ranks once, in flat buckets,
+and so are the metrics: the clip and the AdamW update see the global
+gradient, identical on every rank, and every rank reports the global
+numbers.  ``train_step.allreduce_seconds`` adds up the host time of those
+all-reduces.
+
 ``batch`` leaves are shaped ``(accum, micro_batch, ...)`` except
 ``channel_mask``, which is shared.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
 from torch.func import functional_call
 
 from ..config import Config
+from ..parallel import data_parallel as dpx
 from .losses import composite_loss, label_smoothed_ce
 from .optimizer import FusedAdamW
 from .train_state import TrainModule, TrainState
@@ -91,10 +103,11 @@ def _total(comps: dict, weights: dict):
 
 
 def make_train_step(module: TrainModule, optimizer: FusedAdamW, cfg: Config,
-                    bow_indices) -> Callable:
+                    bow_indices, *, data_parallel: dpx.DataParallel | None = None) -> Callable:
     """Returns ``train_step(state, batch, generator) -> (state, metrics)``;
-    ``generator`` is a CPU ``torch.Generator`` (the step's dropout key).
-    The state's parameters and optimizer state update in place."""
+    ``generator`` is a CPU ``torch.Generator`` (the step's dropout key,
+    the same on every rank).  The state's parameters and optimizer state
+    update in place."""
     loss_fn = make_loss_fn(module, cfg, bow_indices)
     accum = cfg.training.grad_accum_steps
     mixed = cfg.training.mixed_precision
@@ -114,24 +127,36 @@ def make_train_step(module: TrainModule, optimizer: FusedAdamW, cfg: Config,
         for i in range(accum):
             micro = {k: v[i] for k, v in batch.items() if k != "channel_mask"}
             micro["channel_mask"] = batch["channel_mask"]
-            total, comps = loss_fn(fwd, micro, _micro_generator(base_seed, i),
-                                   state.loss_weights)
-            # parameters a configuration leaves unused (the loss heads without
-            # the composite loss, the attention of the cnn-only ablation) get
-            # zero gradients, as jax.grad gives them
-            grads = torch.autograd.grad(total, leaves, allow_unused=True,
-                                        materialize_grads=True)
+            with dpx.installed(data_parallel, micro["eeg"].shape[0]):
+                total, comps = loss_fn(fwd, micro, _micro_generator(base_seed, i),
+                                       state.loss_weights)
+                # parameters a configuration leaves unused (the loss heads
+                # without the composite loss, the attention of the cnn-only
+                # ablation) get zero gradients, as jax.grad gives them
+                grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                            materialize_grads=True)
             for acc, g in zip(grads_acc, grads):
                 acc.add_(g.to(acc.dtype))
             for k in names:
                 comps_acc[k] = comps_acc[k] + comps[k].detach()
         grads = {n: (acc / accum).float() for n, acc in zip(fwd, grads_acc)}
         comps = {k: v / accum for k, v in comps_acc.items()}
+        if data_parallel is not None:
+            if grads_acc and grads_acc[0].is_cuda:
+                # the all-reduce's time starts when the gradients are ready
+                torch.cuda.synchronize(grads_acc[0].device)
+            t0 = time.perf_counter()
+            dpx.all_reduce_buckets(list(grads.values()), data_parallel.group)
+            summed = torch.stack([comps[k].float() for k in names])
+            dpx.all_reduce_buckets([summed], data_parallel.group)
+            comps = dict(zip(names, summed.unbind()))
+            train_step.allreduce_seconds += time.perf_counter() - t0
         grad_norm = optimizer.update(params, grads, state.opt_state)
         state.step += 1
         metrics = dict(comps, loss=_total(comps, state.loss_weights), grad_norm=grad_norm)
         return state, metrics
 
+    train_step.allreduce_seconds = 0.0
     return train_step
 
 

@@ -19,8 +19,17 @@ with its behaviour and names:
   saves the live state unless it lands inside a step.
 
 The state lives on one device: the card unless the caller asks for the CPU
-(``device=``).  The JAX trainer's ``mesh`` and ``cfg.parallel`` are not
-ported; a config that asks for more than one device raises.
+(``device=``).  Data parallelism follows the JAX trainer's mesh wiring: an
+explicit ``mesh=``, else one that ``cfg.parallel``'s ``data_axis`` and
+``dcn_axis`` build over the ranks of the process group
+(``parallel.initialize_distributed``; one process a rank).  Every rank then
+starts from the first rank's state, builds only its rows of each window and
+runs the data-parallel step, which computes the single-device step of the
+global window.  Evaluation and model selection run on the primary, which
+hands the metrics and its decisions (best model, patience, stop, the
+adaptive loss weights) to every rank, so the ranks stay in step; only the
+primary logs metrics and writes checkpoints.  ``model_axis > 1`` (tensor
+parallelism) is ROADMAP item 1.7b and raises.
 """
 
 from __future__ import annotations
@@ -36,6 +45,10 @@ import torch
 from ..config import Config, replace_nested
 from ..decode import DecodeParams, build_generate_fn
 from ..evaluation import ChineseEvaluator, prediction_diversity
+from ..parallel import is_primary, make_mesh, shard_train_state
+from ..parallel.data_parallel import DataParallel
+from ..parallel.distributed import process_count
+from ..parallel.mesh import Mesh, shard_batch
 from ..utils.metrics import MetricLogger, NullLogger
 from .checkpoint import CheckpointManager
 from .losses import AdaptiveLossScheduler
@@ -78,12 +91,20 @@ class EEGTrainer:
         metric_logger: MetricLogger | None = None,
         checkpoint_dir: str | None = None,
         device: torch.device | str = "cuda",
+        mesh: Mesh | None = None,
     ):
-        if cfg.parallel.requested:
-            raise ValueError(
-                "the config asks for a multi-device mesh (parallel.data_axis / model_axis / "
-                "dcn_axis > 1); the port trains on one device: multi-device training is "
-                "ROADMAP item 1.7, not ported yet")
+        pc = cfg.parallel
+        if mesh is None and pc.requested:
+            try:
+                mesh = make_mesh(pc.data_axis, pc.model_axis, n_dcn=pc.dcn_axis)
+            except ValueError as e:
+                raise ValueError(f"{e}: data parallelism (ROADMAP 1.7a) runs one process a "
+                                 "rank; start them with IST_COORDINATOR, IST_NUM_PROCESSES "
+                                 "and IST_PROCESS_ID (parallel.initialize_distributed)") from e
+        if mesh is not None and (not mesh.over_ranks or len(mesh.devices) != process_count()):
+            raise ValueError(f"the trainer's mesh must hold every rank of the process group "
+                             f"({process_count()}), not {mesh.devices}")
+        self.mesh = mesh
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA card: pass device='cpu' to train on the CPU")
@@ -93,7 +114,9 @@ class EEGTrainer:
         self.bow_indices = np.asarray(bow_indices, np.int32)
         self.train_indices = np.asarray(train_indices)
         self.val_indices = np.asarray(val_indices)
-        self.mlog = metric_logger or NullLogger()
+        # across ranks, metrics are the primary's to log
+        self.leads = mesh is None or is_primary()
+        self.mlog = (metric_logger if self.leads else None) or NullLogger()
 
         tc = cfg.training
         steps_per_epoch = max(
@@ -160,9 +183,34 @@ class EEGTrainer:
             dict(module.named_parameters()), tc.optimizer, self.total_steps
         )
         state = create_train_state(module, self.optimizer, init_weights)
+        data_parallel = None
+        if self.mesh is not None:
+            n_data = self.mesh.n_batch_shards
+            if tc.batch_size % n_data:
+                raise ValueError(
+                    f"micro batch {tc.batch_size} not divisible by the mesh's"
+                    f" {n_data} data-parallel devices"
+                )
+            state = shard_train_state(state, self.mesh)
+            if n_data > 1:  # one shard is the one-device step
+                data_parallel = DataParallel.of(self.mesh)
         # the step runs this state's module (its BatchNorm buffers included)
-        self._train_step = make_train_step(module, self.optimizer, self.cfg, self.bow_indices)
+        self._train_step = make_train_step(module, self.optimizer, self.cfg, self.bow_indices,
+                                           data_parallel=data_parallel)
         return state
+
+    @property
+    def distributed(self) -> bool:
+        """More than one rank: evaluation and decisions are the primary's."""
+        return self.mesh is not None and process_count() > 1
+
+    def _from_primary(self, obj):
+        """``obj`` as the primary has it, on every rank."""
+        if not self.distributed:
+            return obj
+        box = [obj]
+        torch.distributed.broadcast_object_list(box, src=0)
+        return box[0]
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
@@ -173,7 +221,10 @@ class EEGTrainer:
 
         ``start_window`` supports mid-epoch resume: the data order is a pure
         function of (seed, epoch), so skipping the first N windows replays
-        the exact remainder of an interrupted epoch."""
+        the exact remainder of an interrupted epoch.  On a mesh each rank
+        builds only its rows of every micro-batch (the dataset's windows
+        depend on (seed, epoch, index) alone, so they are the global
+        window's rows)."""
         tc = self.cfg.training
         rng = np.random.default_rng((tc.seed, epoch))
         idx = rng.permutation(self.train_indices)
@@ -181,15 +232,17 @@ class EEGTrainer:
         n_windows = len(idx) // window
         for w in range(start_window, n_windows):
             chunk = idx[w * window : (w + 1) * window]
+            if self.mesh is not None:
+                chunk = shard_batch(
+                    self.mesh, {"i": chunk.reshape(tc.grad_accum_steps, tc.batch_size)},
+                    batch_axis=1)["i"].reshape(-1)
             batch = self.dataset.get_batch(chunk, epoch=epoch)
             out = {}
             for k, v in batch.items():
                 if k == "channel_mask":
                     out[k] = v
                 else:
-                    out[k] = v.reshape(
-                        (tc.grad_accum_steps, tc.batch_size) + v.shape[1:]
-                    )
+                    out[k] = v.reshape((tc.grad_accum_steps, -1) + v.shape[1:])
             yield out
 
     def train_epoch(
@@ -235,10 +288,18 @@ class EEGTrainer:
         )
         logger.info("Epoch %d - avg loss %.4f (%.1f samples/s)", epoch + 1, avg,
                     n_samples / dt if dt > 0 else 0.0)
+        if self.mesh is not None:
+            logger.info("rank %d: all-reduce %.3f s of %.3f s", torch.distributed.get_rank()
+                        if self.distributed else 0, self._train_step.allreduce_seconds, dt)
         return state, avg
 
     # ------------------------------------------------------------------
     def evaluate(self, state: TrainState, *, epoch: int = 0) -> dict:
+        """Validation metrics of ``state``; across ranks the primary
+        evaluates and every rank returns its metrics."""
+        return self._from_primary(self._evaluate(state) if self.leads else None)
+
+    def _evaluate(self, state: TrainState) -> dict:
         tc = self.cfg.training
         eval_bs = tc.eval_batch_size
         losses, n = [], 0
@@ -353,6 +414,45 @@ class EEGTrainer:
         logger.info("Resumed from %s at epoch %d", name, self.start_epoch)
         return state
 
+    def _select(self, val: dict):
+        """Model selection on the validation metrics: the adaptive loss
+        weights, improvement, patience and collapse counts.  Returns
+        ``(improved, stop, new_weights or None)``."""
+        tc = self.cfg.training
+        bleu4 = val.get("bleu_4", 0.0)
+        diversity = val.get("diversity_score", 0.0)
+        repetitive = bool(val.get("is_repetitive", True))
+        new_w = None
+        if self.adaptive:
+            comps = {
+                k: val.get(k, 0.0)
+                for k in ("loss_ce", "loss_align", "loss_bow", "loss_div", "loss_var")
+            }
+            new_w = self.adaptive.update(comps, diversity)
+        improved = self.check_improvement(bleu4, diversity, repetitive)
+        if improved:
+            self.patience_counter = 0
+            self.consecutive_repetitive = 0
+        else:
+            self.patience_counter += 1
+            if repetitive:
+                self.consecutive_repetitive += 1
+        return improved, self.patience_counter >= tc.patience, new_w
+
+    _HOST_STATE = ("best_bleu4", "best_diversity", "patience_counter", "consecutive_repetitive")
+
+    def _host_state(self) -> dict:
+        """The selection state that :meth:`_select` moves."""
+        host = {k: getattr(self, k) for k in self._HOST_STATE}
+        host["adaptive"] = self.adaptive.state_dict() if self.adaptive else None
+        return host
+
+    def _set_host_state(self, host: dict) -> None:
+        for k in self._HOST_STATE:
+            setattr(self, k, host[k])
+        if self.adaptive:
+            self.adaptive.load_state_dict(host["adaptive"])
+
     # ------------------------------------------------------------------
     def train(self, state: TrainState) -> tuple[TrainState, float]:
         tc = self.cfg.training
@@ -390,38 +490,26 @@ class EEGTrainer:
                             for p, t in zip(val["predictions"], val["targets"])
                         ],
                     )
-                bleu4 = val.get("bleu_4", 0.0)
-                diversity = val.get("diversity_score", 0.0)
-                repetitive = bool(val.get("is_repetitive", True))
-
-                if self.adaptive:
-                    comps = {
-                        k: val.get(k, 0.0)
-                        for k in ("loss_ce", "loss_align", "loss_bow",
-                                  "loss_div", "loss_var")
-                    }
-                    new_w = self.adaptive.update(comps, diversity)
+                improved, stop, new_w, host = self._from_primary(
+                    (*self._select(val), self._host_state()) if self.leads else None)
+                if not self.leads:
+                    self._set_host_state(host)
+                if new_w is not None:
                     state.loss_weights = dict(new_w)
                     self.mlog.log({f"weights/{k}": v for k, v in new_w.items()})
-
-                if self.check_improvement(bleu4, diversity, repetitive):
+                if improved:
                     self.ckpt.save_best(state, self._meta(epoch, val))
                     logger.info(
-                        "New best model - BLEU-4 %.3f diversity %.3f", bleu4, diversity
+                        "New best model - BLEU-4 %.3f diversity %.3f",
+                        val.get("bleu_4", 0.0), val.get("diversity_score", 0.0),
                     )
-                    self.patience_counter = 0
-                    self.consecutive_repetitive = 0
-                else:
-                    self.patience_counter += 1
-                    if repetitive:
-                        self.consecutive_repetitive += 1
                 if self.consecutive_repetitive >= tc.collapse_tolerance:
                     logger.warning(
                         "Repetitive generation for %d evals — consider adjusting "
                         "loss weights or learning rates",
                         self.consecutive_repetitive,
                     )
-                if self.patience_counter >= tc.patience:
+                if stop:
                     logger.info("Early stopping at epoch %d", epoch + 1)
                     break
                 if (epoch + 1) % tc.checkpoint.save_interval_epochs == 0:

@@ -221,10 +221,12 @@ def test_fused_entry_point_keeps_its_argument_types():
     assert _c_params("flash_bwd.cu", "ist_flash_bwd") == [
         "const void*", "const void*", "const void*", "const void*", "const float*",
         "const float*", "float*", "void*", "void*", "int", "int", "int", "int", "float", "float",
-        "int", "int", "int", "unsigned", "int", "int", "float", "void*"]
+        "int", "int", "int", "unsigned", "int", "int", "float", "int", "int", "int", "int",
+        "void*"]
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     assert _kernels._SIGNATURES["ist_flash_bwd"] == [
-        P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, I, I, I, ctypes.c_uint, I, I, F, P]
+        P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, I, I, I, ctypes.c_uint, I, I, F,
+        I, I, I, I, P]
 
 
 @pytest.mark.parametrize("source", ["flash_bwd.cu", "flash_bwd_split.cu"])

@@ -225,8 +225,15 @@ def test_device_prefetch_on_the_cpu_yields_the_same_batches(feed_dataset, size):
 
 
 def test_device_prefetch_refuses_sharding_and_needs_a_card_unless_asked():
-    with pytest.raises(ValueError, match="1.7"):
+    """``sharding=`` takes a mesh (``tests/test_torch_parallel*.py`` feed
+    one); anything else, or a device beside a serving mesh, is refused."""
+    from imagined_speech_translation_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(TypeError, match="make_mesh"):
         device_prefetch(iter([]), sharding=object(), device="cpu")
+    with pytest.raises(ValueError, match="pass no device"):
+        device_prefetch(iter([]), sharding=make_mesh(2, 1, devices=["cpu", "cpu"]),
+                        device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             device_prefetch(iter([]))

@@ -138,10 +138,11 @@ def _c_params(source, entry):
 def test_forward_entry_point_keeps_its_argument_types():
     assert _c_params("flash_fwd.cu", "ist_flash_fwd") == [
         "const void*", "const void*", "const void*", "void*", "float*", "int", "int", "int",
-        "int", "float", "int", "int", "int", "unsigned", "int", "int", "float", "void*"]
+        "int", "float", "int", "int", "int", "unsigned", "int", "int", "float", "int", "int",
+        "int", "int", "void*"]
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     assert _kernels._SIGNATURES["ist_flash_fwd"] == [
-        P, P, P, P, P, I, I, I, I, F, I, I, I, ctypes.c_uint, I, I, F, P]
+        P, P, P, P, P, I, I, I, I, F, I, I, I, ctypes.c_uint, I, I, F, I, I, I, I, P]
 
 
 @pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_bwd_split.cu"])

@@ -17,9 +17,10 @@
 (c) ``--checkpoint`` with a checkpoint directory of the port's
     ``CheckpointManager`` and with a model ``state_dict`` file: the same ids
     as ``build_decode_fn`` on the saved model, loaded strictly.
-(d) ``main``'s arguments: ``--data-parallel 2`` and ``--device cuda``
-    without a card fail; ``--device cpu`` serves (in-process, pooled, and in
-    a ``DecodeWorker`` child).
+(d) ``main``'s arguments: ``--data-parallel 2`` with a ``--max-batch`` that
+    does not split over it, ``--data-parallel 2`` without two cards and
+    ``--device cuda`` without a card fail; ``--device cpu`` serves
+    (in-process, pooled, and in a ``DecodeWorker`` child).
 (e) One real websocket round trip through ``cli.serve.main`` on a free
     port.
 
@@ -300,9 +301,12 @@ def test_main_refuses_data_parallel_and_a_missing_card(setup, monkeypatch, capsy
     root = setup["root"]
     with pytest.raises(SystemExit):
         serve.main(_main_argv(root, "--device", "cpu", "--data-parallel", "2"))
-    assert "ROADMAP item 1.7" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="1.7"):
-        serve.build_decode_fn_from_args(**_args(root, data_parallel=2))
+    assert "--max-batch 1 is not a multiple of --data-parallel 2" in capsys.readouterr().err
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="--data-parallel 2 needs 2 cards"):
+            serve.build_decode_fn_from_args(**dict(_args(root, data_parallel=2), device="cuda"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA card"):
         serve.main(_main_argv(root))
