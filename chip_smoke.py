@@ -131,14 +131,32 @@ Phases, each failing loudly (non-zero exit, no final line):
    (``devices=["cuda:0", "cuda:0"]``): the single replica's ids on 16
    windows and behind a ``BatchScheduler``, "not divisible" for 15, 2 IIR
    and 10 flash forward launches a batch.  Seconds a step, the all-reduce's
-   share, peak memory a rank, windows/s: correctness, not scaling.
+   share, peak memory a rank, windows/s: correctness, not scaling;
+17. tp_cp: tensor parallelism and ring attention on the one card.
+   ``cli.train`` at full width in float32 as two gloo ranks with
+   ``parallel.model_axis=2`` against the multi_device phase's one-process
+   run: every step's losses within 2e-4 relative, the final weights by the
+   learning-rate rule, the checkpoint written once and whole (the
+   one-process run's keys and shapes) and restored into each rank's
+   slices, 5 + 5 flash launches a micro-step on each rank, the checkpoint
+   served in float32 with the one-process checkpoint's ids.  Then, on two
+   more ranks, ``ring_attention`` alone at (16, 6, 1656, 128) in float32
+   against plain attention (out and gradients within 1e-4 of max |ref|),
+   and the full-width ``BrainRegionEncoder`` with ``seq_shards=2`` against
+   ``seq_shards=1`` with the attention's plain twin (out and every
+   parameter's gradient within 1e-4 of the largest; the flash kernels'
+   path reported beside it).  Seconds and peak memory a rank: correctness,
+   not scaling.  ``multi_card_tp`` (not run by ``main``) does the same
+   over four cards on NCCL, as 2 data x 2 model ranks.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
 bf16 and f32 training paths, the profile-train path, the trainer path, the
 server path, the graft path (``cli.train --bart-params``), the features
-path, the data-parallel training path (both ranks' ``cli.train``) and the
-data-parallel serving path (one batch over two replicas) (and, for the
+path, the data-parallel training path (both ranks' ``cli.train``), the
+data-parallel serving path (one batch over two replicas), the
+tensor-parallel training path (both ranks' ``cli.train``) and the
+context-parallel encoder (both ranks; the ring launches no kernel) (and, for the
 flash forward and the fused backward, the variants their checks ran and
 the multi_device phase's mapping checks), and the one before that the
 card's name and power limit.
@@ -1566,12 +1584,7 @@ def phase_trainer(smi: str, tmp):
     from imagined_speech_translation_tpu_torch import _kernels
     from imagined_speech_translation_tpu_torch.cli import evaluate as evaluate_cli
     from imagined_speech_translation_tpu_torch.cli import train as train_cli
-    from imagined_speech_translation_tpu_torch.cli.profile_slice import synthetic_vocab
     from imagined_speech_translation_tpu_torch.config import default_config
-    from imagined_speech_translation_tpu_torch.data import (
-        make_synthetic_corpus,
-        make_synthetic_montage,
-    )
     from imagined_speech_translation_tpu_torch.training import CheckpointManager, EEGTrainer
 
     cfg = default_config()
@@ -1599,14 +1612,8 @@ def phase_trainer(smi: str, tmp):
     wandb_mode = os.environ.get("WANDB_MODE")
     os.environ["WANDB_MODE"] = "disabled"
     try:
-        make_synthetic_montage(tmp / "montage.csv")
-        make_synthetic_corpus(tmp / "data", n_files=10, samples_per_file=8,
-                              n_timepoints=cfg.data.n_timepoints, seed=0)
-        (tmp / "vocab.txt").write_text("\n".join(synthetic_vocab(cfg.model.bart.vocab_size))
-                                       + "\n", encoding="utf-8")
+        args = _trainer_corpus(tmp)
         free = shutil.disk_usage(tmp).free / 2**30
-        args = ["--data-dir", str(tmp / "data"), "--montage", str(tmp / "montage.csv"),
-                "--vocab", str(tmp / "vocab.txt"), "--device", "cuda"]
         for s in ("training.num_epochs=2", "training.eval_interval_epochs=1",
                   "training.checkpoint.save_interval_epochs=1",
                   "training.checkpoint.max_to_keep=1"):
@@ -2540,9 +2547,13 @@ def train_rank(spec_json: str) -> int:
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
 
-    # the module's tensors against the first rank's, bit for bit
+    # the module's tensors against the first rank's, bit for bit (under
+    # tensor parallelism the replicated ones; the split ones are slices)
     unequal = []
+    split = state.tensor_parallel.dims if state.tensor_parallel is not None else {}
     for key, t in state.module.state_dict().items():
+        if key in split:
+            continue
         first = t.clone()
         if world > 1:
             dist.broadcast(first.view(-1).view(torch.uint8), 0)
@@ -2565,7 +2576,8 @@ def train_rank(spec_json: str) -> int:
                saves=saves, unequal_to_first_rank=unequal,
                bn_equal_to_first_rank=not any("running_" in k for k in unequal),
                restored=name, restore_s=restore_s, restore_differs=differ,
-               lr_max=max(lrs), test_predictions=res["test_metrics"]["predictions"])
+               lr_max=max(lrs), test_predictions=res["test_metrics"]["predictions"],
+               split=len(split))
     with open(spec["out"], "w") as f:
         json.dump(out, f)
     return 0
@@ -2841,15 +2853,464 @@ def phase_multi_device(smi: str, tmp):
         f"{[round(x, 2) for x in rates['two']]}, one {[round(x, 2) for x in rates['one']]}")
     del one_fn, two_fn
     torch.cuda.empty_cache()
-    return kernel_rows, dp_launches, serve_launches
+    return kernel_rows, dp_launches, serve_launches, (one, one_dir)
+
+
+# ---------------------------------------------------------------------------
+# 17. tp_cp: tensor parallelism and ring attention (two ranks, one card)
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+RING_SHAPE = (16, 6, 1656, 128)  # the region attention's batch x heads at B = 4, padded
+RING_REL = 1e-4    # ring against plain attention: max |err| / max |ref|, f32
+CP_BATCH = 2       # windows through the context-parallel encoder
+CP_REL = 1e-4      # the encoder's out and gradients against one process with the plain
+                   # attention: max |err| / max |ref| and of the largest gradient (JAX's rule)
+
+
+def cp_rank(spec_json: str) -> int:
+    """One rank of the context-parallel checks (``IST_*`` set): (c)
+    ``ring_attention`` alone at ``RING_SHAPE`` in float32 over a ``seq`` axis
+    of two ranks, and (b) the full-width ``BrainRegionEncoder`` with
+    ``seq_shards=2`` (1655 tokens padded to 1656, eval mode) on ``CP_BATCH``
+    windows.  With ``data`` > 1 in the spec the mesh is ``{data, seq: 2}``
+    and each data group takes its rows of both inputs.  The first seq rank
+    of each group also runs the plain attention and the ``seq_shards=1``
+    encoder on its rows, with the attention's plain twin (float32 products,
+    as the ring's: the bounded comparison) and with the flash kernels
+    (3xTF32: reported), and writes the errors, as JSON to ``out``, with
+    each rank's seconds and peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.config import default_config
+    from imagined_speech_translation_tpu_torch.models import BrainRegionEncoder, layers
+    from imagined_speech_translation_tpu_torch.models.init import init_parameters
+    from imagined_speech_translation_tpu_torch.ops.flash_attention import (
+        flash_attention_reference,
+    )
+    from imagined_speech_translation_tpu_torch.parallel import (
+        context_mesh, initialize_distributed, make_mesh, ring_attention)
+
+    spec = json.loads(spec_json)
+    initialize_distributed(device="cuda")
+    rank = torch.distributed.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(spec.get("data", 1), TP_RANKS, axis_names=("data", "seq"))
+    lead = mesh.coords()["seq"] == 0
+    out = dict(rank=rank, lead=lead)
+
+    def my_rows(t):
+        n = t.shape[0] // mesh.n_batch_shards
+        return t[mesh.shard_index() * n:(mesh.shard_index() + 1) * n]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    # (c) the ring alone
+    rng = np.random.default_rng(23)
+    q, k, v, w = (my_rows(torch.tensor(rng.normal(size=RING_SHAPE), dtype=torch.float32,
+                                       device=dev)) for _ in range(4))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*leaves)
+        (o * w).sum().backward()
+        torch.cuda.synchronize()
+        return o.detach(), [t.grad for t in leaves], time.perf_counter() - t0
+
+    def plain(q, k, v):
+        p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5, dim=-1)
+        return torch.matmul(p, v)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launch_counts()
+    ring_out, ring_grads, ring_s = run(lambda q, k, v: ring_attention(q, k, v, mesh=mesh))
+    ring_s = min(ring_s, run(lambda q, k, v: ring_attention(q, k, v, mesh=mesh))[2])
+    out.update(ring_s=ring_s, ring_peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               ring_launches=_kernels.launch_counts())
+    if lead:
+        ref_out, ref_grads, plain_s = run(plain)
+        out.update(plain_s=min(plain_s, run(plain)[2]), ring_out_rel=rel(ring_out, ref_out),
+                   ring_grad_rel=[rel(a, b) for a, b in zip(ring_grads, ref_grads)])
+        del ref_out, ref_grads
+    del q, k, v, w, ring_out, ring_grads
+    torch.cuda.empty_cache()
+
+    # (b) the encoder at full width
+    cfg = default_config()
+    counts = cfg.model.region_channel_counts
+    mask = np.zeros((len(counts), cfg.model.max_region_channels), bool)
+    for r, c in enumerate(counts):
+        mask[r, :c] = True
+    eeg = my_rows(torch.tensor(rng.normal(size=(CP_BATCH, len(counts),
+                                                cfg.model.max_region_channels,
+                                                cfg.data.n_timepoints)),
+                               dtype=torch.float32, device=dev))
+    mask = torch.tensor(mask, device=dev)
+
+    def encoder(seq_shards):
+        bcfg = cfg.model.brain_encoder
+        bcfg = dataclasses.replace(bcfg, region_encoder=dataclasses.replace(
+            bcfg.region_encoder, seq_shards=seq_shards))
+        with torch.device("meta"):
+            enc = BrainRegionEncoder(bcfg, in_channels=cfg.model.max_region_channels,
+                                     n_timepoints=cfg.data.n_timepoints,
+                                     n_regions=len(counts))
+        enc = init_parameters(enc.to_empty(device=dev), 29).eval()
+        names, params = zip(*enc.named_parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = enc(eeg, mask)
+        grads = torch.autograd.grad((y ** 2).sum(), params, allow_unused=True,
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+        return y.detach(), dict(zip(names, grads)), time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launch_counts()
+    with context_mesh(mesh):
+        cp_out, cp_grads, cp_s = encoder(2)
+    out.update(cp_s=cp_s, cp_peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               cp_launches=_kernels.launch_counts(), cp_finite=bool(torch.isfinite(cp_out).all()))
+    if lead:
+        def against(ref_out, ref_grads):
+            """out's error of max |ref|, the worst gradient's of the largest."""
+            scale = max(g.abs().max().item() for g in ref_grads.values())
+            worst = max(ref_grads, key=lambda n: (cp_grads[n] - ref_grads[n]).abs().max().item())
+            return (rel(cp_out, ref_out), (cp_grads[worst] - ref_grads[worst]).abs().max().item()
+                    / scale, worst, scale)
+
+        # the bounded reference: one process with the attention's plain twin,
+        # float32 products as the ring's; then the flash kernels' path
+        plain_attention = layers.dot_product_attention
+        layers.dot_product_attention = (
+            lambda q, k, v, **kw: flash_attention_reference(q, k, v)[0])
+        try:
+            ref_out, ref_grads, one_s = encoder(1)
+        finally:
+            layers.dot_product_attention = plain_attention
+        (out["cp_out_rel"], out["cp_grad_rel"], out["cp_grad_worst"],
+         out["cp_grad_scale"]) = against(ref_out, ref_grads)
+        del ref_out, ref_grads
+        ref_out, ref_grads, kernel_s = encoder(1)
+        out["kernel_out_rel"], out["kernel_grad_rel"], *_ = against(ref_out, ref_grads)
+        out.update(one_s=one_s, kernel_s=kernel_s, n_params=len(ref_grads))
+    torch.distributed.barrier()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _check_tp_run(smi: str, tag: str, one: dict, one_dir, ranks: list, tp_dir, micro: int):
+    """The checks of a TP ``cli.train`` run (``ranks``, written under
+    ``tp_dir``) against the one-process run: every step's loss and
+    components within ``DP_STEP_RTOL``, the checkpoints written once and
+    whole (the one-process run's keys and shapes, moments too), restored
+    into each rank's slices bit for bit, the replicated tensors equal on
+    every rank, the final weights by the learning-rate rule; exactly 5
+    flash forward and 5 fused backward launches in each of a rank's
+    ``micro`` micro-steps, and the evaluations' launches on the first rank
+    only.  Returns the ranks' launches."""
+    import torch
+
+    want = _train_metrics(one_dir / "metrics.jsonl")
+    got = _train_metrics(tp_dir / "metrics.jsonl")
+    if len(want) != 2 or len(got) != 2:
+        raise AssertionError(f"logged steps: {len(want)} one process, {len(got)} ranks")
+    worst = 0.0
+    for i, (w, g) in enumerate(zip(want, got)):
+        for key in w:
+            if key == "train/grad_norm":
+                continue
+            rel = abs(g[key] - w[key]) / max(abs(w[key]), 1e-30)
+            worst = max(worst, rel)
+            if rel > DP_STEP_RTOL:
+                raise AssertionError(f"step {i} {key}: TP ranks {g[key]}, one process {w[key]} "
+                                     f"(rel {rel:.2e} > {DP_STEP_RTOL})")
+    log(f"[{tag}] train: steps {[r['step'] for r in ranks]}; losses and components of both "
+        f"steps within {worst:.2e} relative (bound {DP_STEP_RTOL}); one process loss "
+        f"{[round(w['train/loss'], 6) for w in want]}, TP ranks "
+        f"{[round(g['train/loss'], 6) for g in got]}; {ranks[0]['split']} tensors split a rank")
+
+    dirs_one = sorted(p.name for p in (one_dir / "checkpoints").iterdir())
+    dirs_two = sorted(p.name for p in (tp_dir / "checkpoints").iterdir())
+    writes = [len(r["saves"]) for r in ranks]
+    if dirs_two != dirs_one or writes != [len(dirs_two)] + [0] * (len(ranks) - 1):
+        raise AssertionError(f"checkpoints {dirs_two} (one process {dirs_one}), writes {writes}")
+    for r in ranks:
+        if r["restore_differs"] or r["unequal_to_first_rank"] or not r["split"]:
+            raise AssertionError(f"rank {r['rank']}: restore differs at "
+                                 f"{r['restore_differs'][:5]}, replicated tensors unequal to "
+                                 f"rank 0 at {r['unequal_to_first_rank'][:5]}, {r['split']} split")
+    a = torch.load(one_dir / "checkpoints" / "checkpoint_epoch_1" / "state.pt",
+                   map_location="cuda", weights_only=True)
+    b = torch.load(tp_dir / "checkpoints" / "checkpoint_epoch_1" / "state.pt",
+                   map_location="cuda", weights_only=True)
+    for x, y in ((a["module"], b["module"]), (a["opt_state"]["mu"], b["opt_state"]["mu"]),
+                 (a["opt_state"]["nu"], b["opt_state"]["nu"])):
+        if {k: v.shape for k, v in x.items()} != {k: v.shape for k, v in y.items()}:
+            raise AssertionError("the TP checkpoint's keys or shapes differ from one process's")
+    lr = one["lr_max"]
+    flipped = n = 0
+    worst_p = 0.0
+    for key, w in a["module"].items():
+        diff = (b["module"][key].float() - w.float()).abs()
+        if "running_" in key:
+            if (diff - 1e-4 * w.float().abs()).max().item() > 1e-5:
+                raise AssertionError(f"BatchNorm {key}: beyond 1e-4 relative + 1e-5")
+            continue
+        worst_p = max(worst_p, diff.max().item())
+        if diff.max().item() > 1e-6 + 1e-3 * lr + 2.1 * lr:
+            raise AssertionError(f"{key}: max |diff| {diff.max().item()} beyond 2.1 lr ({lr})")
+        flipped += int((diff > 1e-6 + 1e-3 * lr).sum())
+        n += w.numel()
+    del a, b
+    torch.cuda.empty_cache()
+    if flipped > 1e-3 * n:
+        raise AssertionError(f"{flipped} of {n} parameters beyond 1e-3 lr")
+    log(f"[{tag}] checkpoints {dirs_two}, written once and whole (keys and shapes of the "
+        f"one-process run's, moments too), restored into each rank's slices bit for bit, "
+        f"replicated tensors equal on every rank; final weights: {flipped} of {n} beyond 1e-6 "
+        f"+ 1e-3 x lr (lr max {lr:.3e}), max |diff| {worst_p:.3e}")
+
+    per_micro = {k: 0 for k in one["launches"]}
+    per_micro.update(flash_fwd=5 * micro, flash_bwd=5 * micro)
+    evals = ranks[0]["launches"]["flash_fwd"] - 5 * micro
+    for r in ranks:
+        train = {k: sum(e["launches"][k] for e in r["epochs"]) for k in per_micro}
+        extra = evals if r["rank"] == 0 else 0
+        if train != per_micro or r["launches"] != dict(per_micro, flash_fwd=5 * micro + extra):
+            raise AssertionError(f"TP rank {r['rank']}: training launches {train}, all "
+                                 f"{r['launches']}; want {per_micro} + {extra} forward")
+    if evals <= 0 or evals % 10:
+        raise AssertionError(f"evaluation launches {evals}")
+
+    def per_step(r):
+        return sum(e["seconds"] for e in r["epochs"]) / r["step"]
+
+    log(f"[{tag}] launches: each rank 5 flash forward + 5 fused backward a micro-step "
+        f"({micro} micro-steps); evaluations {evals} flash forward on rank 0 only.  On "
+        f"{smi}: TP ranks {[round(per_step(r), 2) for r in ranks]} s a step (one process "
+        f"{per_step(one):.2f}), all-reduces {[round(r['allreduce_s'], 2) for r in ranks]} s, "
+        f"peak {[round(r['peak_gib'], 1) for r in ranks]} GiB a rank (one process "
+        f"{one['peak_gib']:.1f}), wall {[round(r['wall_s'], 1) for r in ranks]} s")
+    return {k: sum(r["launches"][k] for r in ranks) for k in per_micro}
+
+
+def _spawn_cp(tmp, env: dict, world: int, data: int) -> list[dict]:
+    """``world`` ``cp_rank`` processes over ``data`` data groups."""
+    import os
+    from pathlib import Path
+
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.cp_rank(sys.argv[1]))"
+    runs = []
+    for r in range(world):
+        res, log_path = tmp / f"cp_rank{r}.json", tmp / f"cp_rank{r}.log"
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", code, json.dumps(dict(out=str(res), data=data))],
+                stdout=f, stderr=subprocess.STDOUT,
+                env={**os.environ, **env, "IST_PROCESS_ID": str(r)},
+                cwd=str(Path(__file__).resolve().parent))
+        runs.append((proc, res, log_path))
+    return _wait_all(runs, 600)
+
+
+def _check_cp(tag: str, cp: list) -> dict:
+    """The ring's and the context-parallel encoder's errors on every seq
+    group's first rank (the bounds ``RING_REL`` and ``CP_REL``), no kernel
+    launched by the ring; returns the ranks' launches of the encoder."""
+    import numpy as np
+
+    from imagined_speech_translation_tpu_torch.config import default_config
+
+    leads = [r for r in cp if r["lead"]]
+    for r in leads:
+        if r["ring_out_rel"] > RING_REL or max(r["ring_grad_rel"]) > RING_REL:
+            raise AssertionError(f"ring attention at {RING_SHAPE}, rank {r['rank']}: out "
+                                 f"{r['ring_out_rel']:.2e}, grads {r['ring_grad_rel']} of max "
+                                 f"|ref| (bound {RING_REL})")
+        if r["cp_out_rel"] > CP_REL or r["cp_grad_rel"] > CP_REL:
+            raise AssertionError(f"encoder seq_shards=2, rank {r['rank']}: out "
+                                 f"{r['cp_out_rel']:.2e}, gradients {r['cp_grad_rel']:.2e} at "
+                                 f"{r['cp_grad_worst']} (bound {CP_REL})")
+    for r in cp:
+        if not r["cp_finite"] or r["cp_launches"]["flash_fwd"] or r["cp_launches"]["flash_bwd"]:
+            raise AssertionError(f"rank {r['rank']}: ring path finite {r['cp_finite']}, "
+                                 f"launched {r['cp_launches']}")
+    heads = default_config().model.brain_encoder.region_encoder.attn_heads
+    log(f"[{tag}] (c) ring_attention at {RING_SHAPE} f32 (the rows of {len(leads)} data "
+        f"group(s)) over two seq ranks against plain attention: out "
+        f"{[f'{r['ring_out_rel']:.2e}' for r in leads]}, dq/dk/dv "
+        f"{[f'{x:.2e}' for r in leads for x in r['ring_grad_rel']]} of max |ref| (bound "
+        f"{RING_REL}); forward + backward {[round(r['ring_s'], 3) for r in cp]} s a rank "
+        f"(plain {[round(r['plain_s'], 3) for r in leads]} s), peak "
+        f"{[round(r['ring_peak_gib'], 2) for r in cp]} GiB")
+    log(f"[{tag}] (b) BrainRegionEncoder at full width (1655 tokens padded to 1656, h 768, "
+        f"heads {heads}) on {CP_BATCH} windows, seq_shards=2 over two seq ranks against "
+        f"seq_shards=1 in one process: out {[f'{r['cp_out_rel']:.2e}' for r in leads]} of max "
+        f"|ref|, gradients of all {leads[0]['n_params']} parameters within "
+        f"{[f'{r['cp_grad_rel']:.2e}' for r in leads]} of the largest "
+        f"({[f'{r['cp_grad_scale']:.3e}' for r in leads]}; worst "
+        f"{sorted({r['cp_grad_worst'] for r in leads})}; bound {CP_REL}), the one process "
+        f"with the attention's plain twin; with the flash kernels (3xTF32) out "
+        f"{[f'{r['kernel_out_rel']:.2e}' for r in leads]}, gradients "
+        f"{[f'{r['kernel_grad_rel']:.2e}' for r in leads]}; forward + backward "
+        f"{[round(r['cp_s'], 2) for r in cp]} s a rank (one process, plain twin "
+        f"{[round(r['one_s'], 2) for r in leads]} s, kernels "
+        f"{[round(r['kernel_s'], 2) for r in leads]} s), peak "
+        f"{[round(r['cp_peak_gib'], 2) for r in cp]} GiB a rank")
+    return {k: int(np.sum([r["cp_launches"][k] for r in cp])) for k in cp[0]["cp_launches"]}
+
+
+def phase_tp_cp(smi: str, tmp, one: dict, one_dir):
+    """17. Tensor parallelism and ring attention on one card, on the trainer
+    phase's corpus.  (a) ``cli.train`` at full width in float32 (the
+    multi_device phase's flags) as two ranks with ``parallel.model_axis=2``
+    (``IST_BACKEND=gloo``, the ``_TP_RULES`` tensors split, every rank on
+    the whole micro-batch of 4), against the multi_device phase's
+    one-process run (``_check_tp_run``); the checkpoint served by
+    ``cli.serve.build_decode_fn_from_args`` in float32 (beam 3 pinned to
+    16), ids equal to the one-process checkpoint's.  (b), (c) ``cp_rank``
+    on two ranks (``_check_cp``).  Prints each rank's seconds and peak
+    memory.  Returns the launches of (a)'s ranks and of (b)'s ranks."""
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch.config import default_config, replace_nested
+
+    cfg = default_config()
+    base = ["--data-dir", str(tmp / "data"), "--montage", str(tmp / "montage.csv"),
+            "--vocab", str(tmp / "vocab.txt"), "--device", "cuda"]
+    for s in DP_SETS:
+        base += ["--set", s]
+    tp_dir = tmp / "tp_two"
+    port = _free_port()
+    env = dict(WANDB_MODE="disabled", IST_COORDINATOR=f"127.0.0.1:{port}",
+               IST_NUM_PROCESSES=str(TP_RANKS), IST_BACKEND="gloo")
+    log(f"[tp_cp] (a) two ranks with IST_COORDINATOR=127.0.0.1:{port} IST_NUM_PROCESSES="
+        f"{TP_RANKS} IST_BACKEND=gloo, --set parallel.model_axis={TP_RANKS}; correctness, "
+        f"not scaling: both ranks share the card and gloo reduces through the host")
+    t0 = time.perf_counter()
+    ranks = _wait_all([_spawn_train(tmp, f"tp_rank{r}", base + [
+        "--out-dir", str(tp_dir), "--set", f"parallel.model_axis={TP_RANKS}"],
+        dict(env, IST_PROCESS_ID=str(r))) for r in range(TP_RANKS)], 600)
+    log(f"[tp_cp] (a) processes {time.perf_counter() - t0:.1f} s")
+    # 2 steps of grad_accum_steps micro-steps, each of the whole micro-batch
+    tp_launches = _check_tp_run(smi, "tp_cp", one, one_dir, ranks, tp_dir,
+                                cfg.training.grad_accum_steps * 2)
+
+    scfg = replace_nested(cfg, "generation.min_length", cfg.generation.max_length)
+    (tmp / "tp_serve_config.json").write_text(scfg.to_json())
+    fargs = dict(vocab=str(tmp / "vocab.txt"), montage=str(tmp / "montage.csv"),
+                 config=str(tmp / "tp_serve_config.json"), device="cuda", max_batch=16)
+    windows = np.random.default_rng(19).normal(
+        size=(16, 125, scfg.data.n_timepoints)).astype(np.float32)
+    ids = []
+    for d in (one_dir, tp_dir):
+        fn, tok = build_recorded(dict(fargs, checkpoint=str(d / "checkpoints" /
+                                                           "checkpoint_epoch_1")))
+        fn(windows)
+        ids.append(tok.history[-1])
+        del fn
+    torch.cuda.empty_cache()
+    if not np.array_equal(ids[0], ids[1]):
+        raise AssertionError("the TP checkpoint's ids differ from the one-process checkpoint's")
+    log("[tp_cp] (a) serving: the TP checkpoint on one card (f32, beam 3 pinned to 16) gives "
+        "the one-process checkpoint's ids on 16 windows")
+
+    env = dict(IST_COORDINATOR=f"127.0.0.1:{_free_port()}", IST_NUM_PROCESSES=str(TP_RANKS),
+               IST_BACKEND="gloo")
+    cp_launches = _check_cp("tp_cp", _spawn_cp(tmp, env, TP_RANKS, 1))
+    return tp_launches, cp_launches
+
+
+def _trainer_corpus(tmp) -> list:
+    """The trainer phase's corpus, montage and vocabulary under ``tmp``;
+    returns ``cli.train``'s data flags."""
+    from imagined_speech_translation_tpu_torch.cli.profile_slice import synthetic_vocab
+    from imagined_speech_translation_tpu_torch.config import default_config
+    from imagined_speech_translation_tpu_torch.data import (
+        make_synthetic_corpus,
+        make_synthetic_montage,
+    )
+
+    cfg = default_config()
+    make_synthetic_montage(tmp / "montage.csv")
+    make_synthetic_corpus(tmp / "data", n_files=10, samples_per_file=8,
+                          n_timepoints=cfg.data.n_timepoints, seed=0)
+    (tmp / "vocab.txt").write_text("\n".join(synthetic_vocab(cfg.model.bart.vocab_size))
+                                   + "\n", encoding="utf-8")
+    return ["--data-dir", str(tmp / "data"), "--montage", str(tmp / "montage.csv"),
+            "--vocab", str(tmp / "vocab.txt"), "--device", "cuda"]
+
+
+def multi_card_tp() -> int:
+    """Tensor and data parallelism and the ring across four cards over NCCL
+    (not part of ``main``, which needs one card): ``python3 -c "import
+    chip_smoke as c; c.multi_card_tp()"`` on a machine with four cards.
+    The trainer phase's corpus; ``cli.train`` at full width in float32 (the
+    multi_device phase's flags) in one process on ``cuda:0``, then as four
+    ranks, one a card (``IST_BACKEND`` unset: NCCL), with
+    ``parallel.data_axis=2`` and ``parallel.model_axis=2`` (micro-batch 2 a
+    rank), held to it by ``_check_tp_run``; then ``cp_rank`` on four ranks
+    over a ``{data: 2, seq: 2}`` mesh (``_check_cp``): the ring's blocks
+    travel card to card.  Scratch under ``build/``, removed afterwards."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"multi_card_tp needs four cards, found {n}")
+    smi = timed(phase_device)
+    timed(phase_build)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tp_cards_", dir=build))
+    try:
+        base = _trainer_corpus(tmp)
+        for s in DP_SETS:
+            base += ["--set", s]
+        (one,) = _wait_all([_spawn_train(tmp, "one", base + [
+            "--out-dir", str(tmp / "one"), "--set", "parallel.data_axis=1"],
+            {"WANDB_MODE": "disabled"})], 600)
+        env = dict(WANDB_MODE="disabled", IST_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                   IST_NUM_PROCESSES="4")
+        log("[tp_cards] four ranks, one a card, NCCL: --set parallel.data_axis=2 --set "
+            "parallel.model_axis=2")
+        t0 = time.perf_counter()
+        ranks = _wait_all([_spawn_train(tmp, f"rank{r}", base + [
+            "--out-dir", str(tmp / "tp"), "--set", "parallel.data_axis=2",
+            "--set", "parallel.model_axis=2"], dict(env, IST_PROCESS_ID=str(r)))
+            for r in range(4)], 600)
+        log(f"[tp_cards] processes {time.perf_counter() - t0:.1f} s")
+        from imagined_speech_translation_tpu_torch.config import default_config
+
+        _check_tp_run(smi, "tp_cards", one, tmp / "one", ranks, tmp / "tp",
+                      default_config().training.grad_accum_steps * 2)
+        env = dict(IST_COORDINATOR=f"127.0.0.1:{_free_port()}", IST_NUM_PROCESSES="4")
+        _check_cp("tp_cards", _spawn_cp(tmp, env, 4, 2))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(smi)
+    return 0
 
 
 def run_trainer_and_server(smi: str):
     """The trainer phase, then the server phase on its checkpoint, then the
-    graft, feed and multi_device phases on its corpus, in one scratch
+    graft, feed, multi_device and tp_cp phases on its corpus, in one scratch
     directory under ``build/`` that is removed afterwards.  Returns the
-    trainer, server and graft phases' launches and the multi_device phase's
-    results."""
+    trainer, server and graft phases' launches and the multi_device and
+    tp_cp phases' results."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -2865,8 +3326,10 @@ def run_trainer_and_server(smi: str):
         graft = timed(phase_graft, smi, tmp)
         timed(phase_feed, smi, tmp)
         torch.cuda.empty_cache()
-        multi = timed(phase_multi_device, smi, tmp)
-        return trainer, server, graft, multi
+        *multi, (one, one_dir) = timed(phase_multi_device, smi, tmp)
+        torch.cuda.empty_cache()
+        tp_cp = timed(phase_tp_cp, smi, tmp, one, one_dir)
+        return trainer, server, graft, multi, tp_cp
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2939,8 +3402,9 @@ def main() -> int:
     timed(phase_train_card_vs_cpu)
     profile_launches = timed(phase_profile_train, smi)
     torch.cuda.empty_cache()
-    trainer_launches, server_launches, graft_launches, multi = run_trainer_and_server(smi)
+    trainer_launches, server_launches, graft_launches, multi, tp_cp = run_trainer_and_server(smi)
     mapping_checks, dp_launches, serving_dp_launches = multi
+    tp_launches, cp_launches = tp_cp
     features_launches = timed(phase_features, smi)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
@@ -2952,7 +3416,9 @@ def main() -> int:
                                     "graft": graft_launches,
                                     "features": features_launches,
                                     "data_parallel": dp_launches,
-                                    "serving_dp": serving_dp_launches}, mapping_checks)))
+                                    "serving_dp": serving_dp_launches,
+                                    "tensor_parallel": tp_launches,
+                                    "context_parallel": cp_launches}, mapping_checks)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -23,7 +23,10 @@ Data parallelism: start one process a rank with ``IST_COORDINATOR=host:port``,
 ``IST_BACKEND=gloo``; see ``parallel.distributed``) and the same flags plus
 ``--set parallel.data_axis=N`` (or ``parallel.dcn_axis``).  Rank ``i`` trains
 on ``cuda:{i % device_count}`` (``--device cpu``: CPU ranks on gloo); the
-primary logs the metrics and writes the checkpoints.
+primary logs the metrics and writes the checkpoints.  Tensor parallelism:
+``--set parallel.model_axis=M`` over ``data_axis x model_axis`` ranks splits
+the JAX ``_TP_RULES`` tensors over the M ranks of each batch shard; the
+checkpoints are written whole.
 """
 
 from __future__ import annotations

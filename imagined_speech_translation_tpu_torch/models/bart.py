@@ -18,6 +18,13 @@ residual and FFN activations drop out at ``cfg.dropout`` and attention
 probabilities at ``cfg.attention_dropout``, as the JAX module does with
 ``train=True``; ``return_hidden`` also returns the last decoder states.
 ``cross_entropy_loss`` is the token-level loss of the teacher-forced logits.
+
+Under tensor parallelism (``parallel.tensor_parallel``, the JAX
+``_TP_RULES``) each attention holds this rank's heads (``q/k/v_proj``
+column-parallel, ``out_proj`` row-parallel, the hoisted ``out_proj(v_proj(
+vec))`` included) and each FFN this rank's hidden columns (``fc1`` column,
+``fc2`` row); a dropout on those draws the mask at the full width and keeps
+the rank's part.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from torch import nn
 
 from ..config import BartConfig
 from ..ops import dot_product_attention, dropout
-from ..parallel import data_parallel
+from ..parallel import data_parallel, tensor_parallel
+from .layers import column_parallel, row_parallel
 
 
 def pseudo_encoder_sequence(proj_eeg: torch.Tensor, length: int) -> torch.Tensor:
@@ -49,20 +57,23 @@ class _BartAttention(nn.Module):
 
     def _split(self, t):
         b, s, _ = t.shape
-        return t.reshape(b, s, self.num_heads, self.d // self.num_heads).transpose(1, 2)
+        return t.reshape(b, s, -1, self.d // self.num_heads).transpose(1, 2)
 
     def kv(self, kv_in):
         """(k, v) head-split projections of ``kv_in``: loop-invariant for
         fixed encoder states."""
-        return self._split(self.k_proj(kv_in)), self._split(self.v_proj(kv_in))
+        kv_in = tensor_parallel.copy_to_model(kv_in)
+        return (self._split(column_parallel(self.k_proj, kv_in)),
+                self._split(column_parallel(self.v_proj, kv_in)))
 
     def uniform_const(self, vec):
         """Cross-attention output when every key/value position holds ``vec``
         (B, d): softmax weights are uniform, so attention returns v itself."""
-        return self.out_proj(self.v_proj(vec))
+        return row_parallel(self.out_proj, column_parallel(
+            self.v_proj, tensor_parallel.copy_to_model(vec)))
 
     def forward(self, x, kv=None, mask=None, *, cache=None, kv_pair=None, generator=None):
-        q = self._split(self.q_proj(x))
+        q = self._split(column_parallel(self.q_proj, tensor_parallel.copy_to_model(x)))
         k, v = kv_pair if kv_pair is not None else self.kv(x if kv is None else kv)
         if cache is not None:
             idx = cache["index"]
@@ -72,9 +83,9 @@ class _BartAttention(nn.Module):
             k, v = cache["k"], cache["v"]
         out = dot_product_attention(
             q, k, v, mask=mask, dropout_rate=self.dropout if generator is not None else 0.0,
-            generator=generator,
+            generator=generator, model_dim=1,
         )
-        return self.out_proj(out.transpose(1, 2).reshape(x.shape[:-1] + (self.d,)))
+        return row_parallel(self.out_proj, out.transpose(1, 2).reshape(x.shape[:-1] + (-1,)))
 
 
 class _BartDecoderLayer(nn.Module):
@@ -108,7 +119,8 @@ class _BartDecoderLayer(nn.Module):
             a = self.encoder_attn(x, kv=encoder_hidden, mask=cross_mask, kv_pair=cross_kv,
                                   generator=generator)
         x = self.encoder_attn_layer_norm(x + drop(a))
-        f = self.fc2(drop(F.gelu(self.fc1(x))))  # BART's exact (erf) GELU
+        h = F.gelu(column_parallel(self.fc1, tensor_parallel.copy_to_model(x)))  # exact (erf)
+        f = row_parallel(self.fc2, dropout(h, self.dropout, generator, model_dim=-1))
         return self.final_layer_norm(x + drop(f))
 
 

@@ -23,7 +23,17 @@ every dropout of the JAX module draws from the ``generator`` passed to
 
 Under data parallelism (``parallel.data_parallel``) BatchNorm's train-mode
 statistics are the global batch's, and the region-stacked tensors tell the
-dropouts that their batch rows lie on dimension 1.
+dropouts that their batch rows lie on dimension 1.  Under tensor parallelism
+(``parallel.tensor_parallel``, the JAX ``_TP_RULES``) the gated FFN's
+``linear1`` and ``gate`` are column-parallel and ``linear2`` row-parallel,
+and ``cnn_to_attn_fc1`` is column-parallel with its columns gathered before
+``cnn_to_attn_ln1``; their biases stay replicated and each rank adds its
+columns of them (:func:`column_parallel`, :func:`row_parallel`).  The
+attention is replicated.  With ``seq_shards > 1`` the token attention runs
+as ring attention over the ``seq_axis`` of the mesh that
+``parallel.context.context_mesh`` installs, on tokens zero-padded to a
+shard multiple whose padded keys it masks, without attention-prob dropout,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ from torch import nn
 
 from ..config import RegionEncoderConfig
 from ..ops import dot_product_attention, dropout
-from ..parallel import data_parallel
+from ..parallel import data_parallel, tensor_parallel
+from ..parallel.context import get_context_mesh, ring_attention
 
 
 def gelu(x):
@@ -46,6 +57,15 @@ def _param(*shape):
     return nn.Parameter(torch.empty(*shape))
 
 
+def region_linear(x, weight, bias=None):
+    """``(R, ..., in) -> (R, ..., out)`` with ``weight (R, out, in)`` and
+    ``bias (R, out)``."""
+    r, *mid, d = x.shape
+    x2, wt = x.reshape(r, -1, d), weight.transpose(1, 2)
+    y = torch.bmm(x2, wt) if bias is None else torch.baddbmm(bias.unsqueeze(1), x2, wt)
+    return y.reshape(r, *mid, y.shape[-1])
+
+
 class RegionLinear(nn.Module):
     """Per-region Dense: ``(R, ..., in) -> (R, ..., out)``."""
 
@@ -55,11 +75,38 @@ class RegionLinear(nn.Module):
         self.bias = _param(n_regions, out_features)
 
     def forward(self, x):
-        r, *mid, d = x.shape
-        y = torch.baddbmm(
-            self.bias.unsqueeze(1), x.reshape(r, -1, d), self.weight.transpose(1, 2)
-        )
-        return y.reshape(r, *mid, y.shape[-1])
+        return region_linear(x, self.weight, self.bias)
+
+
+def _linear(layer, x, weight, bias):
+    if isinstance(layer, RegionLinear):
+        return region_linear(x, weight, bias)
+    return F.linear(x, weight, bias)
+
+
+def column_parallel(layer: nn.Module, x):
+    """``layer`` (a Dense of this rank's output columns under tensor
+    parallelism) on ``x``, which :func:`tensor_parallel.copy_to_model`
+    handed in; a replicated bias adds its columns of this rank."""
+    if tensor_parallel.active() is None:
+        return layer(x)
+    bias = layer.bias
+    if bias.shape[-1] != layer.weight.shape[-2]:
+        bias = tensor_parallel.cols(tensor_parallel.copy_to_model(bias))
+    return _linear(layer, x, layer.weight, bias)
+
+
+def row_parallel(layer: nn.Module, x):
+    """``layer`` (a Dense of this rank's input rows under tensor
+    parallelism) on this rank's columns ``x``: the partial products summed
+    over the model group, then the bias, once."""
+    if tensor_parallel.active() is None:
+        return layer(x)
+    y = tensor_parallel.reduce_from_model(_linear(layer, x, layer.weight, None))
+    bias = layer.bias
+    if isinstance(layer, RegionLinear):
+        bias = bias.reshape((bias.shape[0],) + (1,) * (y.dim() - 2) + (bias.shape[-1],))
+    return y + bias
 
 
 class RegionLayerNorm(nn.Module):
@@ -183,8 +230,9 @@ class GatedFFN(nn.Module):
         self.linear2 = dense(n_regions, hidden_dim, dim)
 
     def forward(self, x, generator=None):
-        h = gelu(self.linear1(x)) * torch.sigmoid(self.gate(x))
-        return self.linear2(dropout(h, self.dropout, generator))
+        x = tensor_parallel.copy_to_model(x)
+        h = gelu(column_parallel(self.linear1, x)) * torch.sigmoid(column_parallel(self.gate, x))
+        return row_parallel(self.linear2, dropout(h, self.dropout, generator, model_dim=-1))
 
 
 class MultiHeadAttention(nn.Module):
@@ -192,17 +240,18 @@ class MultiHeadAttention(nn.Module):
 
     With ``n_regions`` the projections are per region and the input is
     ``(R, B, S, D)``; ``R*B`` folds into the attention batch.  With a
-    generator, attention probabilities drop out at rate ``dropout``."""
+    generator, attention probabilities drop out at rate ``dropout``.  With
+    ``seq_shards > 1`` the attention is ``parallel.context.ring_attention``
+    over the ``seq_axis`` of the context mesh, with the key validity
+    ``kv_valid`` and no attention-prob dropout (the JAX contract)."""
 
     def __init__(self, dim: int, num_heads: int, n_regions: int | None = None,
-                 seq_shards: int = 1, dropout: float = 0.0):
+                 seq_shards: int = 1, dropout: float = 0.0, seq_axis: str = "seq"):
         super().__init__()
-        if seq_shards != 1:
-            raise NotImplementedError("seq_shards > 1 (ring attention over a sequence mesh) is "
-                                      "not ported: it is ROADMAP item 1.7b")
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
         self.num_heads, self.dropout = num_heads, dropout
+        self.seq_shards, self.seq_axis = seq_shards, seq_axis
         self.q_proj = dense(n_regions, dim, dim)
         self.k_proj = dense(n_regions, dim, dim)
         self.v_proj = dense(n_regions, dim, dim)
@@ -212,15 +261,24 @@ class MultiHeadAttention(nn.Module):
         s, d = t.shape[-2:]
         return t.reshape(-1, s, self.num_heads, d // self.num_heads).transpose(1, 2).contiguous()
 
-    def forward(self, q_in, kv_in=None, generator=None):
+    def forward(self, q_in, kv_in=None, generator=None, kv_valid=None):
         kv_in = q_in if kv_in is None else kv_in
-        out = dot_product_attention(
-            self._split(self.q_proj(q_in)),
-            self._split(self.k_proj(kv_in)),
-            self._split(self.v_proj(kv_in)),
-            dropout_rate=self.dropout if generator is not None else 0.0,
-            generator=generator,
-        )
+        q = self._split(self.q_proj(q_in))
+        k = self._split(self.k_proj(kv_in))
+        v = self._split(self.v_proj(kv_in))
+        if self.seq_shards > 1:
+            mesh = get_context_mesh()
+            if mesh is None:
+                raise RuntimeError("seq_shards>1 requires the mesh: run the model inside "
+                                   "parallel.context.context_mesh(mesh)")
+            out = ring_attention(q, k, v, mesh=mesh, axis=self.seq_axis, kv_valid=kv_valid)
+        else:
+            if kv_valid is not None:
+                raise ValueError("kv_valid is only used on the seq_shards>1 path")
+            out = dot_product_attention(
+                q, k, v, dropout_rate=self.dropout if generator is not None else 0.0,
+                generator=generator,
+            )
         return self.out_proj(out.transpose(1, 2).reshape(q_in.shape))
 
 
@@ -273,13 +331,14 @@ class RegionConvAttentionEncoder(nn.Module):
             if cfg.use_positional_embedding:
                 self.pos_emb = _param(R, 1, n_timepoints + 1 + nt, h)
             self.cross_scale_attn = MultiHeadAttention(
-                h, cfg.attn_heads[0] // 2, R, cfg.seq_shards, dropout=0.1
+                h, cfg.attn_heads[0] // 2, R, cfg.seq_shards, dropout=0.1, seq_axis=cfg.seq_axis
             )
             for i in range(cfg.num_attn_layers):
                 self.add_module(f"attn{i}_norm", RegionLayerNorm(R, h))
                 self.add_module(
                     f"attn{i}",
-                    MultiHeadAttention(h, cfg.attn_heads[i], R, cfg.seq_shards, dropout=0.1),
+                    MultiHeadAttention(h, cfg.attn_heads[i], R, cfg.seq_shards, dropout=0.1,
+                                       seq_axis=cfg.seq_axis),
                 )
                 self.add_module(f"ffn{i}_norm", RegionLayerNorm(R, h))
                 self.add_module(f"ffn{i}", GatedFFN(R, h, h * (4 if i == 0 else 2)))
@@ -324,7 +383,9 @@ class RegionConvAttentionEncoder(nn.Module):
             return self._cnn_only_pool(x, generator)
         cfg = self.cfg
         light, med, _ = cfg.dropout_tiers
-        y = dropout(gelu(self.cnn_to_attn_ln1(self.cnn_to_attn_fc1(x))), 0.1, generator)
+        y = tensor_parallel.gather_cols(
+            column_parallel(self.cnn_to_attn_fc1, tensor_parallel.copy_to_model(x)))
+        y = dropout(gelu(self.cnn_to_attn_ln1(y)), 0.1, generator)
         y = dropout(gelu(self.cnn_to_attn_ln2(self.cnn_to_attn_fc2(y))), 0.05, generator)
         x = self.cnn_to_attn_fc3(y)
 
@@ -340,15 +401,26 @@ class RegionConvAttentionEncoder(nn.Module):
                 pos = pos.repeat(1, 1, n // seq_len + 1, 1)
             x = x + pos[:, :, :n]
 
+        # window context parallelism: zero-pad the tokens to a shard multiple
+        # and keep the padded keys out of every softmax; the padded rows are
+        # never pooled (pooling reads the special tokens only)
+        kv_valid = None
+        if cfg.seq_shards > 1:
+            true_len = x.shape[2]
+            x = F.pad(x, (0, 0, 0, (-true_len) % cfg.seq_shards))
+            kv_valid = torch.arange(x.shape[2], device=x.device) < true_len
+
         states = []
         for i in range(cfg.num_attn_layers):
-            a = getattr(self, f"attn{i}")(getattr(self, f"attn{i}_norm")(x), generator=generator)
+            a = getattr(self, f"attn{i}")(getattr(self, f"attn{i}_norm")(x), generator=generator,
+                                          kv_valid=kv_valid)
             x = x + dropout(a, light, generator)
             states.append(x)
             f = getattr(self, f"ffn{i}")(getattr(self, f"ffn{i}_norm")(x), generator)
             x = x + dropout(f, med, generator)
             if i > 0:
-                cross = self.cross_scale_attn(x, states[-2], generator=generator)
+                cross = self.cross_scale_attn(x, states[-2], generator=generator,
+                                              kv_valid=kv_valid)
                 x = x + cfg.cross_scale_weight * cross
 
         combined = x[:, :, 0] + cfg.temporal_pool_weight * x[:, :, 1 : 1 + nt].mean(dim=2)

@@ -37,6 +37,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from .mesh import BATCH_AXES
+
 
 @dataclass(frozen=True)
 class DataParallel:
@@ -49,7 +51,11 @@ class DataParallel:
 
     @classmethod
     def of(cls, mesh, group=None) -> "DataParallel":
-        """The context of this process on a training mesh."""
+        """The context of this process on a training mesh, reduced over
+        ``group`` (default: the ranks of this rank's model and seq index,
+        which hold the other batch shards)."""
+        if group is None:
+            group = mesh.group([a for a in mesh.axis_names if a in BATCH_AXES])
         return cls(mesh.shard_index(), mesh.n_batch_shards, group)
 
 

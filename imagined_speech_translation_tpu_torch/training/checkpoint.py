@@ -14,7 +14,11 @@ checkpoint is a directory holding
 A restore loads onto the target state's device and is strict: an entry that
 is missing, extra, or of another shape or dtype raises.  Across ranks the
 primary writes, between barriers, and removes old epochs; every rank
-restores onto its own device.
+restores onto its own device.  A tensor-parallel state (one whose
+``tensor_parallel`` records the split tensors) is written whole: every rank
+gathers the model group's slices (:func:`full_state_dicts`), so the file is
+the single-device one that ``cli/serve.py --checkpoint`` and
+``cli/evaluate.py`` read; a restore keeps each rank's slices of it.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from ..parallel.distributed import is_primary, sync_hosts
+from ..parallel.tensor_parallel import all_gather
 from .optimizer import FusedAdamWState
 from .train_state import TrainState
 
@@ -42,6 +47,7 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def _save(self, name: str, state: TrainState, meta: dict[str, Any]):
         path = self.dir / name
+        module, mu, nu = full_state_dicts(state)
         if is_primary() and path.exists():
             shutil.rmtree(path)
         sync_hosts("ckpt_clear")
@@ -50,8 +56,8 @@ class CheckpointManager:
             opt = state.opt_state
             torch.save({
                 "step": int(state.step),
-                "module": state.module.state_dict(),
-                "opt_state": {"count": int(opt.count), "mu": opt.mu, "nu": opt.nu},
+                "module": module,
+                "opt_state": {"count": int(opt.count), "mu": mu, "nu": nu},
                 "loss_weights": {k: float(v) for k, v in state.loss_weights.items()},
             }, path / "state.pt")
             (path / "meta.json").write_text(json.dumps(meta, default=_js))
@@ -84,10 +90,11 @@ class CheckpointManager:
         path = self.dir / name
         device = next(target_state.module.parameters()).device
         saved = torch.load(path / "state.pt", map_location=device, weights_only=True)
-        _copy_strict(target_state.module.state_dict(), saved["module"], "module")
+        tp = target_state.tensor_parallel
+        _copy_strict(target_state.module.state_dict(), _slices(saved["module"], tp), "module")
         opt = target_state.opt_state
-        _copy_strict(opt.mu, saved["opt_state"]["mu"], "mu")
-        _copy_strict(opt.nu, saved["opt_state"]["nu"], "nu")
+        _copy_strict(opt.mu, _slices(saved["opt_state"]["mu"], tp), "mu")
+        _copy_strict(opt.nu, _slices(saved["opt_state"]["nu"], tp), "nu")
         if set(saved["loss_weights"]) != set(target_state.loss_weights):
             raise KeyError(f"{name}: loss weights {sorted(saved['loss_weights'])} != "
                            f"{sorted(target_state.loss_weights)}")
@@ -106,6 +113,34 @@ class CheckpointManager:
 
     def exists(self, name: str) -> bool:
         return (self.dir / name).exists()
+
+
+@torch.no_grad()
+def full_state_dicts(state: TrainState, *, moments: bool = True):
+    """``(module state dict, mu, nu)`` of the single-device state (the
+    moments None without ``moments``): under tensor parallelism every split
+    tensor gathered from the model group (a collective: every rank calls
+    it), the state's own tensors otherwise."""
+    module = state.module.state_dict()
+    opt = state.opt_state
+    tp = state.tensor_parallel
+    if tp is None:
+        return module, opt.mu, opt.nu
+
+    def gathered(tensors):
+        return {k: all_gather(v, tp.group, tp.dims[k]) if k in tp.dims else v
+                for k, v in tensors.items()}
+
+    if not moments:
+        return gathered(module), None, None
+    return gathered(module), gathered(opt.mu), gathered(opt.nu)
+
+
+def _slices(saved: dict[str, torch.Tensor], tp) -> dict[str, torch.Tensor]:
+    """This rank's slices of the single-device tensors ``saved``."""
+    if tp is None:
+        return saved
+    return {k: tp.local(k, v) if k in tp.dims else v for k, v in saved.items()}
 
 
 @torch.no_grad()

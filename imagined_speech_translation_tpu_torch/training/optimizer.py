@@ -21,6 +21,11 @@ they lie, which saves a copy of each at 308M parameters):
 * ``mu`` is stored in ``mu_dtype`` (bfloat16 by default) and ``nu`` in
   float32; the arithmetic runs in float32.
 
+Under tensor parallelism (``parallel.tensor_parallel``) a rank holds its
+slice of each sharded parameter, its gradient and its moments; the global
+norm sums the squares of the sharded gradients over the model group and
+counts the replicated ones once, so the clip is the single device's.
+
 ``torch.optim.AdamW`` is not used: its moments take the parameters' dtype
 and it has no ``mu_dtype``.  The JAX package offers the same update as an
 optax chain too (``fused=False``), with the same numerics; the port has the
@@ -111,10 +116,16 @@ def group_lrs(cfg: OptimizerConfig) -> dict[str, float]:
     return {"encoder": cfg.encoder_lr, "projection": cfg.projection_lr, "bart": cfg.bart_lr}
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, in float32."""
+def global_norm(tensors, *, sharded=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, in float32; the squares
+    of the ``sharded`` tensors (slices of tensors split over the ranks of
+    ``group``) summed over the group first."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    parts = torch.stack(torch._foreach_norm([t.float() for t in sharded])).square().sum()
+    torch.distributed.all_reduce(parts, group=group)
+    return (torch.stack(norms).square().sum() + parts).sqrt()
 
 
 @dataclass
@@ -143,12 +154,20 @@ class FusedAdamW:
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
-               state: FusedAdamWState) -> torch.Tensor:
+               state: FusedAdamWState, *, tensor_parallel=None) -> torch.Tensor:
         """One step in place on ``params`` and ``state``; returns the
-        global gradient norm before clipping."""
+        global gradient norm before clipping.  With ``tensor_parallel``
+        (a ``parallel.tensor_parallel.TensorParallel``) the entries of its
+        ``dims`` are this rank's slices."""
         cfg = self.cfg
         b1, b2, eps, wd = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, cfg.weight_decay
-        g_norm = global_norm(grads.values())
+        if tensor_parallel is None:
+            g_norm = global_norm(grads.values())
+        else:
+            dims = tensor_parallel.dims
+            g_norm = global_norm([g for n, g in grads.items() if n not in dims],
+                                 sharded=[g for n, g in grads.items() if n in dims],
+                                 group=tensor_parallel.group)
         clip = torch.where(g_norm < cfg.max_grad_norm, 1.0, cfg.max_grad_norm / g_norm)
         t = torch.tensor(float(state.count + 1), dtype=torch.float32)
         bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** t

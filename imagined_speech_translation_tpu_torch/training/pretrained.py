@@ -14,7 +14,9 @@ this module copies it into ``state.module.model.bart``:
   ``resize_token_embeddings`` semantics; any other shape raises;
 * values are cast to the parameter's dtype (float32 master weights) and
   copied in place, into the parameters the optimizer and the train step
-  already hold.
+  already hold;
+* in a tensor-parallel state each rank copies its slice of every split
+  tensor, which must have the single-device shape.
 """
 
 from __future__ import annotations
@@ -55,7 +57,16 @@ def graft_bart_params(state, path: str | Path):
         raise ValueError(
             "converted BART tree does not match the model: "
             f"missing={missing[:5]} extra={extra[:5]}")
+    tp = getattr(state, "tensor_parallel", None)
     for name, p in params.items():
-        _splice(p, restored[name].to(p.device, p.dtype), name)
+        new, key = restored[name], "model.bart." + name
+        if tp is not None and key in tp.dims:
+            whole = list(p.shape)
+            whole[tp.dims[key]] *= tp.world
+            if list(new.shape) != whole:
+                raise ValueError(f"pretrained leaf {name} has shape {tuple(new.shape)}; a "
+                                 f"tensor-parallel graft expects {tuple(whole)}")
+            new = tp.local(key, new)
+        _splice(p, new.to(p.device, p.dtype), name)
     logger.info("grafted %d pretrained BART leaves from %s", len(params), path)
     return state

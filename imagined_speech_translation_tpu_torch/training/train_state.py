@@ -6,7 +6,9 @@ heads, so both train under one parameter tree (``model.*`` and
 ``loss_heads.*``, the flax tree's ``model`` / ``loss_heads``) and the
 optimizer's substring groups see the reference's names.  :class:`TrainState`
 holds the step, the module (float32 master parameters, BatchNorm running
-statistics in its buffers), the optimizer state and the loss weights.
+statistics in its buffers), the optimizer state and the loss weights, and,
+once ``parallel.shard_train_state(tp=True)`` has kept this rank's slices,
+the tensor-parallel layout (``tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..config import Config
 from ..models.eeg_model import EEGDecodingModel
 from ..models.init import init_parameters
 from .losses import CompositeLossHeads
+from ..parallel.tensor_parallel import TensorParallel
 from .optimizer import FusedAdamW, FusedAdamWState
 
 
@@ -46,6 +49,7 @@ class TrainState:
     module: TrainModule
     opt_state: FusedAdamWState
     loss_weights: dict[str, float]
+    tensor_parallel: TensorParallel | None = None
 
 
 def build_train_module(cfg: Config, bow_k: int, *, seed: int,

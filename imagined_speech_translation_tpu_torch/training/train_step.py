@@ -30,6 +30,16 @@ gradient, identical on every rank, and every rank reports the global
 numbers.  ``train_step.allreduce_seconds`` adds up the host time of those
 all-reduces.
 
+A state whose tensors ``parallel.shard_train_state(tp=True)`` split over a
+``model`` axis (``state.tensor_parallel``) runs its forward and backward
+under that layout (``parallel.tensor_parallel``): the model group's sums
+happen inside them, the model group then averages the gradients of the
+replicated parameters (each rank computed them; the kernels that sum with
+atomics round them differently, and the mean keeps the copies equal), the
+``data_parallel`` group (the ranks of one model index) sums the gradients
+and metrics, and the clip's norm counts each sharded gradient's slices
+once.
+
 ``batch`` leaves are shaped ``(accum, micro_batch, ...)`` except
 ``channel_mask``, which is shared.
 """
@@ -44,6 +54,7 @@ from torch.func import functional_call
 
 from ..config import Config
 from ..parallel import data_parallel as dpx
+from ..parallel import tensor_parallel as tpx
 from .losses import composite_loss, label_smoothed_ce
 from .optimizer import FusedAdamW
 from .train_state import TrainModule, TrainState
@@ -127,7 +138,8 @@ def make_train_step(module: TrainModule, optimizer: FusedAdamW, cfg: Config,
         for i in range(accum):
             micro = {k: v[i] for k, v in batch.items() if k != "channel_mask"}
             micro["channel_mask"] = batch["channel_mask"]
-            with dpx.installed(data_parallel, micro["eeg"].shape[0]):
+            with dpx.installed(data_parallel, micro["eeg"].shape[0]), \
+                    tpx.installed(state.tensor_parallel):
                 total, comps = loss_fn(fwd, micro, _micro_generator(base_seed, i),
                                        state.loss_weights)
                 # parameters a configuration leaves unused (the loss heads
@@ -141,17 +153,27 @@ def make_train_step(module: TrainModule, optimizer: FusedAdamW, cfg: Config,
                 comps_acc[k] = comps_acc[k] + comps[k].detach()
         grads = {n: (acc / accum).float() for n, acc in zip(fwd, grads_acc)}
         comps = {k: v / accum for k, v in comps_acc.items()}
-        if data_parallel is not None:
+        tp = state.tensor_parallel
+        if tp is not None or data_parallel is not None:
             if grads_acc and grads_acc[0].is_cuda:
-                # the all-reduce's time starts when the gradients are ready
+                # the all-reduces' time starts when the gradients are ready
                 torch.cuda.synchronize(grads_acc[0].device)
             t0 = time.perf_counter()
-            dpx.all_reduce_buckets(list(grads.values()), data_parallel.group)
-            summed = torch.stack([comps[k].float() for k in names])
-            dpx.all_reduce_buckets([summed], data_parallel.group)
-            comps = dict(zip(names, summed.unbind()))
+            if tp is not None:
+                # every model rank computed the replicated gradients; kernels
+                # that sum with atomics round them differently, so take their
+                # mean, which keeps the replicated weights equal bit for bit
+                replicated = [g for n, g in grads.items() if n not in tp.dims]
+                dpx.all_reduce_buckets(replicated, tp.group)
+                torch._foreach_mul_(replicated, 1.0 / tp.world)
+            if data_parallel is not None:
+                dpx.all_reduce_buckets(list(grads.values()), data_parallel.group)
+                summed = torch.stack([comps[k].float() for k in names])
+                dpx.all_reduce_buckets([summed], data_parallel.group)
+                comps = dict(zip(names, summed.unbind()))
             train_step.allreduce_seconds += time.perf_counter() - t0
-        grad_norm = optimizer.update(params, grads, state.opt_state)
+        grad_norm = optimizer.update(params, grads, state.opt_state,
+                                     tensor_parallel=state.tensor_parallel)
         state.step += 1
         metrics = dict(comps, loss=_total(comps, state.loss_weights), grad_norm=grad_norm)
         return state, metrics

@@ -19,17 +19,19 @@ with its behaviour and names:
   saves the live state unless it lands inside a step.
 
 The state lives on one device: the card unless the caller asks for the CPU
-(``device=``).  Data parallelism follows the JAX trainer's mesh wiring: an
-explicit ``mesh=``, else one that ``cfg.parallel``'s ``data_axis`` and
-``dcn_axis`` build over the ranks of the process group
+(``device=``).  Parallelism follows the JAX trainer's mesh wiring: an
+explicit ``mesh=``, else one that ``cfg.parallel``'s ``data_axis``,
+``model_axis`` and ``dcn_axis`` build over the ranks of the process group
 (``parallel.initialize_distributed``; one process a rank).  Every rank then
-starts from the first rank's state, builds only its rows of each window and
-runs the data-parallel step, which computes the single-device step of the
-global window.  Evaluation and model selection run on the primary, which
+starts from the first rank's state, keeps its slices of the ``_TP_RULES``
+tensors when ``model_axis > 1``, builds only its batch shard's rows of each
+window and runs the parallel step, which computes the single-device step of
+the global window.  Evaluation and model selection run on the primary, which
 hands the metrics and its decisions (best model, patience, stop, the
-adaptive loss weights) to every rank, so the ranks stay in step; only the
-primary logs metrics and writes checkpoints.  ``model_axis > 1`` (tensor
-parallelism) is ROADMAP item 1.7b and raises.
+adaptive loss weights) to every rank, so the ranks stay in step; under
+tensor parallelism every rank first hands its slices to a whole model on the
+primary, which evaluates alone.  Only the primary logs metrics and writes
+checkpoints (whole, gathered from every rank's slices).
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from ..parallel import is_primary, make_mesh, shard_train_state
 from ..parallel.data_parallel import DataParallel
 from ..parallel.distributed import process_count
 from ..parallel.mesh import Mesh, shard_batch
+from .checkpoint import full_state_dicts
+from .train_state import TrainModule
 from ..utils.metrics import MetricLogger, NullLogger
 from .checkpoint import CheckpointManager
 from .losses import AdaptiveLossScheduler
@@ -98,9 +102,10 @@ class EEGTrainer:
             try:
                 mesh = make_mesh(pc.data_axis, pc.model_axis, n_dcn=pc.dcn_axis)
             except ValueError as e:
-                raise ValueError(f"{e}: data parallelism (ROADMAP 1.7a) runs one process a "
-                                 "rank; start them with IST_COORDINATOR, IST_NUM_PROCESSES "
-                                 "and IST_PROCESS_ID (parallel.initialize_distributed)") from e
+                raise ValueError(f"{e}: data and tensor parallelism (ROADMAP 1.7a, 1.7b) run "
+                                 "one process a rank; start them with IST_COORDINATOR, "
+                                 "IST_NUM_PROCESSES and IST_PROCESS_ID "
+                                 "(parallel.initialize_distributed)") from e
         if mesh is not None and (not mesh.over_ranks or len(mesh.devices) != process_count()):
             raise ValueError(f"the trainer's mesh must hold every rank of the process group "
                              f"({process_count()}), not {mesh.devices}")
@@ -163,6 +168,7 @@ class EEGTrainer:
         self._in_step = False
 
         self._train_step = None
+        self._whole_module = None  # the primary's evaluation model under TP
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int | None = None) -> TrainState:
@@ -178,6 +184,7 @@ class EEGTrainer:
         )
         # the module's token count follows the windows the dataset gives
         cfg = replace_nested(self.cfg, "data.n_timepoints", int(self.dataset.n_timepoints))
+        self._module_cfg = cfg
         module = build_train_module(cfg, len(self.bow_indices), seed=seed, device=self.device)
         self.optimizer = build_optimizer(
             dict(module.named_parameters()), tc.optimizer, self.total_steps
@@ -191,7 +198,8 @@ class EEGTrainer:
                     f"micro batch {tc.batch_size} not divisible by the mesh's"
                     f" {n_data} data-parallel devices"
                 )
-            state = shard_train_state(state, self.mesh)
+            state = shard_train_state(state, self.mesh,
+                                      tp=self.mesh.shape.get("model", 1) > 1)
             if n_data > 1:  # one shard is the one-device step
                 data_parallel = DataParallel.of(self.mesh)
         # the step runs this state's module (its BatchNorm buffers included)
@@ -297,7 +305,25 @@ class EEGTrainer:
     def evaluate(self, state: TrainState, *, epoch: int = 0) -> dict:
         """Validation metrics of ``state``; across ranks the primary
         evaluates and every rank returns its metrics."""
+        state = self._whole(state)
         return self._from_primary(self._evaluate(state) if self.leads else None)
+
+    def _whole(self, state: TrainState) -> TrainState | None:
+        """``state`` with a whole module: under tensor parallelism every rank
+        sends its slices (a collective) to a module of the single-device
+        shapes on the primary, and the other ranks get None."""
+        if state.tensor_parallel is None:
+            return state
+        module_sd, _, _ = full_state_dicts(state, moments=False)
+        if not self.leads:
+            return None
+        if self._whole_module is None:
+            with torch.device("meta"):
+                whole = TrainModule(self._module_cfg, len(self.bow_indices))
+            self._whole_module = whole.to_empty(device=self.device)
+        self._whole_module.load_state_dict(module_sd, strict=True)
+        return TrainState(step=state.step, module=self._whole_module,
+                          opt_state=state.opt_state, loss_weights=state.loss_weights)
 
     def _evaluate(self, state: TrainState) -> dict:
         tc = self.cfg.training

@@ -20,6 +20,7 @@ from imagined_speech_translation_tpu_torch.ops import (
     flash_route,
     tile_keep_mask,
 )
+from tests.test_torch_models import few_threads  # noqa: F401
 
 
 def _qkv(b=1, h=2, s=200, d=128, seed=0, s_kv=None):

@@ -29,6 +29,7 @@ from imagined_speech_translation_tpu.ops import pallas_attention as pa
 from imagined_speech_translation_tpu_torch import _kernels
 from imagined_speech_translation_tpu_torch.ops.dropout_mask import dropout_threshold
 from tests.test_torch_split_bwd import _tf32_matmul
+from tests.test_torch_models import few_threads  # noqa: F401
 
 LOG2E = np.float32(np.log2(np.e))
 S_Q, S_KV = 200, 333  # ragged: a partial query tile and a partial key block

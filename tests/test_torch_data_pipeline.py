@@ -29,6 +29,7 @@ from imagined_speech_translation_tpu_torch.models import BrainRegionEncoder
 from imagined_speech_translation_tpu_torch.training import optimizer
 from imagined_speech_translation_tpu_torch.utils import metrics
 from tests.helpers import build_dataset, tiny_config, tiny_tokenizer
+from tests.test_torch_models import few_threads  # noqa: F401
 
 PREDICTIONS = ["我想喝水", "请帮我打开窗户", "今天天气很好", "", "我想喝水", "hello world 音乐"]
 TARGETS = ["我想喝水", "请帮我打开窗", "今天天气不错", "我需要休息", "晚饭吃什么", "hello world"]

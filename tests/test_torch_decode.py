@@ -26,6 +26,7 @@ from imagined_speech_translation_tpu_torch.decode.search import _top_k
 from imagined_speech_translation_tpu_torch.models import EEGDecodingModel
 from tests.helpers import tiny_config, tiny_tokenizer
 from tests.test_torch_models import seeded_flax_variables
+from tests.test_torch_models import few_threads  # noqa: F401
 
 T = 64
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from imagined_speech_translation_tpu.ops import pallas_attention as pa
+from tests.test_torch_models import few_threads  # noqa: F401
 
 S_Q, S_KV = 200, 333
 

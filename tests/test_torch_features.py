@@ -48,6 +48,7 @@ from imagined_speech_translation_tpu_torch.frontend import (
 from imagined_speech_translation_tpu_torch.frontend.stft import get_window
 from imagined_speech_translation_tpu_torch.models import feature_diversity_stats
 from tests.helpers import TINY_VOCAB, build_dataset, tiny_config, tiny_tokenizer
+from tests.test_torch_models import few_threads  # noqa: F401
 
 NPERSEG, HOP, EPS = 128, 64, 1e-10
 

@@ -18,6 +18,7 @@ from imagined_speech_translation_tpu_torch.frontend import (
     sosfilt,
     sosfilt_reference,
 )
+from tests.test_torch_models import few_threads  # noqa: F401
 
 
 def _banks():

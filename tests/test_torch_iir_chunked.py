@@ -22,6 +22,7 @@ from imagined_speech_translation_tpu.frontend.filters import sosfilt_pallas
 from imagined_speech_translation_tpu_torch import _kernels
 from imagined_speech_translation_tpu_torch.frontend import SignalFrontend, sos_sections
 from imagined_speech_translation_tpu_torch.frontend import filters
+from tests.test_torch_models import few_threads  # noqa: F401
 
 T = 1651
 

@@ -37,6 +37,19 @@ def _numpy_tree(tree):
     return {k: _numpy_tree(v) if hasattr(v, "items") else np.array(v) for k, v in tree.items()}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads for a module of tiny shapes (the port's test
+    modules import it): more gain nothing at these sizes, and under six
+    pytest-xdist workers a thread a core each oversubscribes the CPU, which
+    slows every worker several times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def seeded_flax_variables(module, *init_args, seed):
     """Variables with the tree and shapes of ``module.init(*init_args)``,
     filled from a numpy seed.  The tree is traced, not compiled: compiling a

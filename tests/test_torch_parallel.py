@@ -74,7 +74,6 @@ from imagined_speech_translation_tpu_torch.parallel import (
     is_primary,
     make_mesh,
     shard_train_state,
-    state_sharding_tree,
     sync_hosts,
 )
 from imagined_speech_translation_tpu_torch.parallel import data_parallel as dpx
@@ -646,22 +645,6 @@ def test_shard_batch_takes_contiguous_rows_in_dcn_data_order():
         assert got["channel_mask"] is batch["channel_mask"]
     with pytest.raises(ValueError, match="not divisible"):
         shard_batch(mesh, {"x": np.zeros((2, 6))}, batch_axis=1, rank=0)
-
-
-def test_tensor_and_sequence_parallelism_raise_naming_1_7b(setup):
-    with pytest.raises(NotImplementedError, match="1.7b"):
-        make_mesh(4, 2, devices=list(range(8)))
-    mesh = make_mesh(1, 1)
-    state = SimpleNamespace(module=TrainModule(setup["cfg"], bow_k=len(BOW)))
-    for fn in (shard_train_state, state_sharding_tree):
-        with pytest.raises(NotImplementedError, match="1.7b"):
-            fn(state, mesh, tp=True)
-    cfg = _trainer_cfg()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, brain_encoder=dataclasses.replace(
-        cfg.model.brain_encoder, region_encoder=dataclasses.replace(
-            cfg.model.brain_encoder.region_encoder, seq_shards=2))))
-    with pytest.raises(NotImplementedError, match="1.7b"):
-        TrainModule(cfg, bow_k=len(BOW))
 
 
 def test_initialize_distributed_is_a_noop_without_the_variables(monkeypatch):

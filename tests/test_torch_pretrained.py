@@ -87,6 +87,7 @@ from tests.test_torch_train_step import (  # noqa: E402
     _no_dropout_port,
 )
 from tests.test_torch_trainer import TINY_VOCAB, _port, corpus  # noqa: E402,F401
+from tests.test_torch_models import few_threads  # noqa: F401
 
 HF_VOCAB, D, HEADS, LAYERS, FFN, HF_MAXPOS = 140, 48, 4, 2, 96, 40
 PAD, BOS, EOS, START = 0, 1, 2, 2

@@ -17,6 +17,7 @@ from imagined_speech_translation_tpu_torch.cli.profile_slice import (
 )
 from imagined_speech_translation_tpu_torch.data import ChineseCharTokenizer, RegionSpec
 from imagined_speech_translation_tpu_torch.data.regions import ELECTRODE_REGIONS
+from tests.test_torch_models import few_threads  # noqa: F401
 
 
 def _ev(cat, name, ts, dur):

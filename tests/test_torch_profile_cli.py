@@ -31,6 +31,7 @@ from imagined_speech_translation_tpu_torch.models import EEGDecodingModel
 from imagined_speech_translation_tpu_torch.models.bart import cross_entropy_loss
 from imagined_speech_translation_tpu_torch.utils import profiling
 from tests.test_torch_models import seeded_flax_variables
+from tests.test_torch_models import few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])

@@ -75,6 +75,7 @@ from imagined_speech_translation_tpu_torch.training import (
 )
 from tests.helpers import TINY_VOCAB, tiny_config
 from tests.test_torch_models import seeded_flax_variables
+from tests.test_torch_models import few_threads  # noqa: F401
 
 T = 124
 VOCAB = list(dict.fromkeys(TINY_VOCAB))

@@ -31,6 +31,7 @@ from imagined_speech_translation_tpu_torch.data import ChineseCharTokenizer, Reg
 from imagined_speech_translation_tpu_torch.models import EEGDecodingModel
 from tests.helpers import TINY_VOCAB, tiny_config
 from tests.test_torch_models import seeded_flax_variables
+from tests.test_torch_models import few_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 T = 124

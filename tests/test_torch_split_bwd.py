@@ -28,6 +28,7 @@ from imagined_speech_translation_tpu_torch.ops.flash_attention import (
     backward_route,
     backward_split,
 )
+from tests.test_torch_models import few_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -32,6 +32,7 @@ from imagined_speech_translation_tpu_torch.config import LossConfig, OptimizerCo
 from imagined_speech_translation_tpu_torch.convert import convert_variables
 from imagined_speech_translation_tpu_torch.training import TrainModule, losses, optimizer
 from tests.helpers import tiny_config, tiny_tokenizer
+from tests.test_torch_models import few_threads  # noqa: F401
 
 RTOL = 1e-6
 

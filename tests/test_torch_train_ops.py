@@ -29,6 +29,7 @@ from imagined_speech_translation_tpu_torch.ops import (
 )
 from imagined_speech_translation_tpu_torch.ops.dropout_mask import dropout_blocks, hash_bits
 from imagined_speech_translation_tpu_torch.ops.random import draw_seed
+from tests.test_torch_models import few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("seed, s_q, s_kv, block_q, block_k", [

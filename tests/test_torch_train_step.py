@@ -89,7 +89,7 @@ def _no_dropout_jax(mp):
 
 def _no_dropout_port(mp):
     for mod in (layers, brain_encoder, bart):
-        mp.setattr(mod, "dropout", lambda x, rate, generator: x)
+        mp.setattr(mod, "dropout", lambda x, rate, generator, **kw: x)
     attention = layers.dot_product_attention
     mp.setattr(layers, "dot_product_attention",
                lambda *a, **k: attention(*a, **dict(k, dropout_rate=0.0)))

@@ -56,6 +56,7 @@ from imagined_speech_translation_tpu_torch.utils import JsonlLogger
 from tests.helpers import TINY_VOCAB, build_dataset, tiny_config, tiny_tokenizer
 from tests.test_torch_models import seeded_flax_variables
 from tests.test_torch_train_step import BOW, _batch, _no_dropout_jax, _no_dropout_port
+from tests.test_torch_models import few_threads  # noqa: F401
 
 TRAIN, VAL = np.arange(8), np.array([8, 9, 10])
 COMPONENTS = ("loss_ce", "loss_align", "loss_bow", "loss_div", "loss_var")
