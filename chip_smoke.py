@@ -108,6 +108,14 @@ Phases, each failing loudly (non-zero exit, no final line):
    ids equal to a search without the cross-attention hoist), and
    ``cli.train --bart-params`` for one epoch (finite metrics, exact launch
    counts);
+13b. reproduce: ``cli.reproduce`` on that checkpoint (with a ``config.json``
+   of its widths) and the trainer's corpus: ``--dry-run`` exits 0, the
+   blocked path (``probe_egress`` replaced in-process by a failing probe)
+   exits 3 with the ``blocked`` / ``no-egress`` JSON line, and the local
+   chain on ``--device cuda`` converts (equal to the graft's conversion) and
+   holds ``build_bart_generate_fn`` on the card to HF ``generate`` on the CPU
+   over six seeds, greedy and beam 3, identity 1.0 (``--train`` is left to
+   the graft phase's ``cli.train --bart-params``);
 14. feed: ``data.feed.device_prefetch`` over the trainer's corpus, batches
    bit-equal to the host's, copies on a side stream, batches/s beside a
    plain ``.to`` loop;
@@ -148,6 +156,13 @@ Phases, each failing loudly (non-zero exit, no final line):
    path reported beside it).  Seconds and peak memory a rank: correctness,
    not scaling.  ``multi_card_tp`` (not run by ``main``) does the same
    over four cards on NCCL, as 2 data x 2 model ranks.
+18. wake: ``cli.wake_train --device cuda`` on a corpus of 48 events written
+   in the lunar catalog's CSV layout (finite losses falling, the accuracy,
+   the ``torch.save`` file reloaded, no kernel launched); the same weights'
+   logits on the card and on the CPU within 1e-4 of max |ref| with equal
+   predictions; then the twin's Adam step at the published lunar catalog's
+   shape, (76, 81,770, 2) synthetic impulse sequences at batch 32 (fc1
+   1,308,288 x 128): finite losses falling, s/step and peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
@@ -155,8 +170,10 @@ bf16 and f32 training paths, the profile-train path, the trainer path, the
 server path, the graft path (``cli.train --bart-params``), the features
 path, the data-parallel training path (both ranks' ``cli.train``), the
 data-parallel serving path (one batch over two replicas), the
-tensor-parallel training path (both ranks' ``cli.train``) and the
-context-parallel encoder (both ranks; the ring launches no kernel) (and, for the
+tensor-parallel training path (both ranks' ``cli.train``), the
+context-parallel encoder (both ranks; the ring launches no kernel), the
+reproduce path (the local chain's convert and parity) and the wake path
+(``cli.wake_train``, which launches none) (and, for the
 flash forward and the fused backward, the variants their checks ran and
 the multi_device phase's mapping checks), and the one before that the
 card's name and power limit.
@@ -167,6 +184,7 @@ own launch count is 0 on every path.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -196,6 +214,21 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def strict_f32():
+    """float32 products and convolutions without TF32 inside the block (the
+    earlier setting restored after): for comparisons of the card with the
+    CPU."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def kernel_ms(fn, fragment: str, iters: int = 20) -> float:
@@ -2225,6 +2258,103 @@ def phase_graft(smi: str, tmp):
     return launches
 
 
+def phase_reproduce(smi: str, tmp):
+    """13b. ``cli.reproduce`` on the graft phase's seeded HF-layout checkpoint
+    (``fnlp/bart-base-chinese``'s widths; its ``model.safetensors`` linked
+    into a directory with a ``config.json`` of those widths) and the trainer
+    corpus, on the card: (a) ``--dry-run`` exits 0 with the plan's five
+    steps; (b) with no local artifacts and ``probe_egress`` replaced by a
+    failing probe in-process (no network, no timeout), exit 3 and one
+    ``blocked`` / ``no-egress`` JSON line; (c) the local chain on ``--device
+    cuda``: ``cli.convert_hf`` (one ``torch.save`` file, equal to the graft
+    phase's conversion), then ``parity_report``, greedy and beam 3 on six
+    seeds against HF ``generate`` on the CPU in float32, identity 1.0.
+    ``--train`` is not run here (the config's full epoch count); the graft
+    phase runs ``cli.train --bart-params``.  Returns (c)'s launches."""
+    t_phase = time.perf_counter()  # transformers' import included
+    import io
+    import os
+
+    import torch
+    import transformers
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import reproduce
+    from imagined_speech_translation_tpu_torch.config import default_config
+
+    bart = default_config().model.bart
+    work = tmp / "reproduce"
+    hf_dir = work / "hf"
+    hf_dir.mkdir(parents=True)
+    os.symlink(tmp / "graft" / "st" / "model.safetensors", hf_dir / "model.safetensors")
+    transformers.BartConfig(
+        vocab_size=bart.vocab_size, d_model=bart.d_model, encoder_layers=bart.encoder_layers,
+        decoder_layers=bart.decoder_layers, encoder_attention_heads=bart.num_heads,
+        decoder_attention_heads=bart.num_heads, encoder_ffn_dim=bart.ffn_dim,
+        decoder_ffn_dim=bart.ffn_dim, max_position_embeddings=bart.max_position_embeddings,
+        activation_function="gelu", dropout=0.1, attention_dropout=0.0,
+        pad_token_id=bart.pad_token_id, bos_token_id=bart.bos_token_id,
+        eos_token_id=bart.eos_token_id, decoder_start_token_id=bart.decoder_start_token_id,
+        forced_eos_token_id=None, scale_embedding=False,
+    ).to_json_file(hf_dir / "config.json")
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = reproduce.main(argv)
+        lines = out.getvalue().strip().splitlines()
+        return rc, json.loads(lines[-1]), lines
+
+    # (a) the offline plan
+    rc, res, _ = run(["--dry-run", "--work-dir", str(work / "dry")])
+    steps = [s["step"] for s in res["plan"]]
+    if rc != 0 or res["status"] != "dry-run-ok" or steps != [
+            "fetch-chisco", "fetch-hf", "convert-hf", "parity-report"] or not all(
+            res["tools"][k] for k in ("torch", "transformers", "numpy", "entry_points")):
+        raise AssertionError(f"(a) dry run: rc {rc}, {res}")
+    log(f"[reproduce] (a) --dry-run: rc 0, plan {steps}, tools {res['tools']}")
+
+    # (b) blocked: every fetch needed, the probes fail
+    probe = reproduce.probe_egress
+    reproduce.probe_egress = lambda urls=None: [
+        {"url": u, "ok": False, "error": "no egress (replaced probe)"} for u in reproduce.PROBE_URLS]
+    try:
+        rc, res, _ = run(["--work-dir", str(work / "blocked"), "--device", "cuda"])
+    finally:
+        reproduce.probe_egress = probe
+    if rc != reproduce.BLOCKED_EXIT or res["status"] != "blocked" or res["reason"] != "no-egress":
+        raise AssertionError(f"(b) blocked: rc {rc}, {res}")
+    log(f"[reproduce] (b) no egress: rc {rc}, status {res['status']}, reason {res['reason']}, "
+        f"{len(res['probes'])} probes")
+
+    # (c) the local chain on the card
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with strict_f32():
+        rc, res, lines = run(["--work-dir", str(work / "work"), "--data-dir", str(tmp / "data"),
+                              "--hf-checkpoint", str(hf_dir), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    t_chain = time.perf_counter() - t0
+    if rc != 0 or res["status"] != "ok" or res["identity"] != 1.0:
+        raise AssertionError(f"(c) local chain: rc {rc}, {lines[-8:]}")
+    report = json.loads((work / "work" / "parity_report.json").read_text())
+    conv = torch.load(work / "work" / "bart_params.pt", weights_only=True)
+    graft = torch.load(tmp / "graft" / "st.pt", weights_only=True)
+    if conv.keys() != graft.keys() or any(not torch.equal(conv[k], graft[k]) for k in conv):
+        raise AssertionError("(c) the chain's conversion differs from the graft phase's")
+    beams = [c["num_beams"] for c in report["cases"]]
+    if beams != [1, 3, 1, 3, 1, 3] or not all(c["identical"] for c in report["cases"]):
+        raise AssertionError(f"(c) parity report {report}")
+    log(f"[reproduce] (c) local chain --device cuda: convert + parity {t_chain:.1f} s, "
+        f"identity {res['identity']} over {len(beams)} cases (beams {beams}), the conversion "
+        f"equal to the graft phase's ({len(conv)} tensors), transformers "
+        f"{transformers.__version__}, launches {launches}")
+    log(f"[reproduce] phase {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
 def phase_feed(smi: str, tmp):
     """14. The device feed on the trainer phase's corpus (80 windows, plain,
     batches of 16): ``device_prefetch(size=2)`` over ``threaded_producer``
@@ -2367,6 +2497,169 @@ def phase_features(smi: str):
 # ---------------------------------------------------------------------------
 # 16. multi_device: data parallelism (two ranks, two replicas, one card)
 # ---------------------------------------------------------------------------
+
+# the wake path's corpus on the card: the layout of the lunar training
+# catalog that wake_model/ was written for (tests/test_wake_dataset.py's
+# _write_corpus): a catalog of events and one CSV of (abs, time_rel,
+# velocity) rows an event, averaged by 7
+WAKE_AVG = 7
+WAKE_EVENTS = 48
+# the NASA Space Apps 2024 Seismic Detection lunar training catalog as
+# published: 76 events, each a day of velocity at 6.625 Hz (~572,400 rows),
+# so 81,770 steps after averaging by 7; fc1 alone is 1,308,288 x 128
+LUNAR_SHAPE = (76, 81770, 2)
+LUNAR_BATCH = 32
+# Adam's first step at the CLI's lr 1e-3 moves each of fc1's 167M weights by
+# ~1e-3 and lifts the loss far above its start before it falls
+LUNAR_STEPS = 16
+WAKE_LOGIT_REL = 1e-4  # card vs CPU logits, max |err| / max |ref|, float32
+
+
+def _write_wake_corpus(root, n_events: int, seed: int = 0):
+    """``n_events`` event CSVs of ragged lengths (~60-66 averaged rows) with
+    a velocity spike over the 7 raw rows of each event's averaged row, and
+    the catalog naming them; returns the catalog's path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    lines = ["filename,abs,time_rel(sec),extra,mq_type"]
+    for f in range(n_events):
+        n_rows = WAKE_AVG * (60 + f % 7)
+        event_row = int(rng.integers(4, 56))
+        lines.append(f"evt{f},0,{event_row * WAKE_AVG}.0,0,impulse")
+        vel = rng.normal(size=n_rows)
+        vel[event_row * WAKE_AVG : (event_row + 1) * WAKE_AVG] += 6.0
+        rows = ["abs,time_rel,velocity"] + [f"0,{r},{v:.4f}" for r, v in enumerate(vel)]
+        (root / f"evt{f}.csv").write_text("\n".join(rows) + "\n")
+    (root / "catalog.csv").write_text("\n".join(lines) + "\n")
+    return root / "catalog.csv"
+
+
+def phase_wake(smi: str):
+    """18. The wake path.  (a) ``cli.wake_train.main --device cuda`` on a
+    corpus of 48 events written here in the lunar catalog's layout (40
+    epochs, batch 16): finite epoch losses, the last logged below the first,
+    the accuracy returned, the ``torch.save`` file reloaded strictly into a
+    fresh twin, and no kernel of the port launched; (b) those weights on the
+    card and on the CPU on the standardised corpus: logits within
+    ``WAKE_LOGIT_REL`` of max |ref| (float32, TF32 off), the same
+    predictions; (c) the twin's train step at the published lunar catalog's
+    shape, (76, 81,770, 2) synthetic impulse sequences made on the card from
+    a seed: ``LUNAR_STEPS`` Adam steps on one batch of 32, finite losses,
+    the last below the first, s/step and peak memory.  Returns (a)'s
+    launches."""
+    import logging
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import wake_train
+    from imagined_speech_translation_tpu_torch.wake import WakeMLP, make_wake_train_step
+    from imagined_speech_translation_tpu_torch.wake.dataset import load_wake_dataset
+
+    t_phase = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="wake_smoke_", dir=build))
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Keep()
+    wake_train.logger.addHandler(handler)
+    try:
+        # (a) the entry point
+        catalog = _write_wake_corpus(tmp / "corpus", WAKE_EVENTS)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        acc = wake_train.main([str(catalog), str(tmp / "corpus"), "--epochs", "40",
+                               "--batch", "16", "--out", str(tmp / "wake_twin.pt"),
+                               "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        t_cli = time.perf_counter() - t0
+        losses = [float(m.split("loss=")[1].split()[0]) for m in records if "loss=" in m]
+        if (not losses or not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+                or not 0.0 <= acc <= 1.0 or any(launches.values())):
+            raise AssertionError(f"(a) wake_train: losses {losses}, acc {acc}, "
+                                 f"launches {launches}")
+        ds = load_wake_dataset(catalog, tmp / "corpus")
+        sd = torch.load(tmp / "wake_twin.pt", weights_only=True)
+        cpu_model = WakeMLP(ds.seq_len, ds.seq_len)
+        cpu_model.load_state_dict(sd, strict=True)
+        log(f"[wake] (a) cli.wake_train --device cuda on {WAKE_EVENTS} events (seq_len "
+            f"{ds.seq_len}), 40 epochs of batch 16: {t_cli:.2f} s, logged losses {losses}, "
+            f"acc {acc:.3f}; wake_twin.pt ({len(sd)} tensors) reloads strictly; launches "
+            f"{launches}")
+
+        # (b) the same weights on the card and on the CPU
+        x = torch.from_numpy(wake_train.standardize(ds.data))
+        with torch.no_grad(), strict_f32():
+            ref = cpu_model.eval()(x)
+            got = WakeMLP(ds.seq_len, ds.seq_len).cuda()
+            got.load_state_dict(sd, strict=True)
+            got = got.eval()(x.cuda()).cpu()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        same = torch.equal(got.argmax(-1), ref.argmax(-1))
+        labels = torch.from_numpy(np.minimum(ds.labels(), ds.seq_len - 1).astype(np.int64))
+        loss = F.cross_entropy(got, labels).item()
+        if not rel <= WAKE_LOGIT_REL or not same or not np.isfinite(loss):
+            raise AssertionError(f"(b) card vs CPU logits {rel:.2e} of max |ref| (bound "
+                                 f"{WAKE_LOGIT_REL}), predictions equal {same}, loss {loss}")
+        log(f"[wake] (b) card vs CPU on the {len(ds.data)} sequences: logits within "
+            f"{rel:.2e} of max |ref| (bound {WAKE_LOGIT_REL}), predictions equal, loss "
+            f"{loss:.4f}")
+        del cpu_model, got
+
+        # (c) the train step at the lunar catalog's shape
+        n, seq, feats = LUNAR_SHAPE
+        g = torch.Generator(device="cuda").manual_seed(0)
+        data = torch.randn(LUNAR_SHAPE, generator=g, device="cuda") * 0.05
+        events = torch.randint(0, seq, (n,), generator=g, device="cuda")
+        data[torch.arange(n, device="cuda"), events, 1] += 5.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = WakeMLP(seq, seq).cuda()
+        init_fn, step_fn, _ = make_wake_train_step(model, 1e-3)
+        model, opt = init_fn(42)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        xb, yb = data[:LUNAR_BATCH], events[:LUNAR_BATCH]
+        losses, times = [], []
+        for _ in range(LUNAR_STEPS):
+            t0 = time.perf_counter()
+            model, opt, loss = step_fn(model, opt, xb, yb)
+            losses.append(float(loss))  # synchronizes
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = times[1:]
+        log(f"[wake] (c) twin train step at the lunar catalog's shape {LUNAR_SHAPE}, batch "
+            f"{LUNAR_BATCH}, lr 1e-3: {n_params} parameters (fc1 "
+            f"{tuple(model.fc1.weight.shape)}), init {t_init:.2f} s, losses "
+            f"{[round(v, 4) for v in losses]}, s/step first {times[0]:.4f}, then "
+            f"{min(steady):.4f}-{max(steady):.4f} (median "
+            f"{sorted(steady)[len(steady) // 2]:.4f}), peak memory {peak:.3f} GiB, on {smi}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"(c) lunar-shape steps: losses {losses}")
+        del model, opt, data, xb
+        torch.cuda.empty_cache()
+    finally:
+        wake_train.logger.removeHandler(handler)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[wake] phase {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
 
 DP_RANKS = 2
 DP_SETS = ("training.num_epochs=1", "training.eval_interval_epochs=1",
@@ -3307,10 +3600,10 @@ def multi_card_tp() -> int:
 
 def run_trainer_and_server(smi: str):
     """The trainer phase, then the server phase on its checkpoint, then the
-    graft, feed, multi_device and tp_cp phases on its corpus, in one scratch
-    directory under ``build/`` that is removed afterwards.  Returns the
-    trainer, server and graft phases' launches and the multi_device and
-    tp_cp phases' results."""
+    graft, reproduce, feed, multi_device and tp_cp phases on its corpus, in
+    one scratch directory under ``build/`` that is removed afterwards.
+    Returns the trainer, server, graft and reproduce phases' launches and the
+    multi_device and tp_cp phases' results."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3324,12 +3617,13 @@ def run_trainer_and_server(smi: str):
         trainer = timed(phase_trainer, smi, tmp)
         server = timed(phase_server, smi, tmp)
         graft = timed(phase_graft, smi, tmp)
+        reproduce = timed(phase_reproduce, smi, tmp)
         timed(phase_feed, smi, tmp)
         torch.cuda.empty_cache()
         *multi, (one, one_dir) = timed(phase_multi_device, smi, tmp)
         torch.cuda.empty_cache()
         tp_cp = timed(phase_tp_cp, smi, tmp, one, one_dir)
-        return trainer, server, graft, multi, tp_cp
+        return trainer, server, graft, reproduce, multi, tp_cp
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3402,10 +3696,12 @@ def main() -> int:
     timed(phase_train_card_vs_cpu)
     profile_launches = timed(phase_profile_train, smi)
     torch.cuda.empty_cache()
-    trainer_launches, server_launches, graft_launches, multi, tp_cp = run_trainer_and_server(smi)
+    (trainer_launches, server_launches, graft_launches, reproduce_launches, multi,
+     tp_cp) = run_trainer_and_server(smi)
     mapping_checks, dp_launches, serving_dp_launches = multi
     tp_launches, cp_launches = tp_cp
     features_launches = timed(phase_features, smi)
+    wake_launches = timed(phase_wake, smi)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(summary(checks, {"serving": serve_launches, "training": train_launches,
@@ -3414,11 +3710,13 @@ def main() -> int:
                                     "trainer": trainer_launches,
                                     "server": server_launches,
                                     "graft": graft_launches,
+                                    "reproduce": reproduce_launches,
                                     "features": features_launches,
                                     "data_parallel": dp_launches,
                                     "serving_dp": serving_dp_launches,
                                     "tensor_parallel": tp_launches,
-                                    "context_parallel": cp_launches}, mapping_checks)))
+                                    "context_parallel": cp_launches,
+                                    "wake": wake_launches}, mapping_checks)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

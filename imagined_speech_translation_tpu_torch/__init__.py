@@ -2,8 +2,9 @@
 
 The JAX package is the reference; this package imports ``torch`` and never
 ``jax``, and nothing of the JAX package: it keeps its own copies of the
-jax-free modules it needs (``config``, ``runtime``, ``data``,
-``evaluation``, ``utils.metrics``).
+jax-free modules it needs (``config``, ``runtime``, ``data`` with
+``data.fetch``, ``evaluation``, ``utils.metrics``, ``wake.dataset`` and
+``wake.native``).
 Slices ported so far, with the TPU kernels on them rewritten in CUDA C++
 (``csrc/``):
 
@@ -27,7 +28,11 @@ Slices ported so far, with the TPU kernels on them rewritten in CUDA C++
 * the trainer -- ``cli.train`` -> ``training.EEGTrainer`` (the dataset's
   windows, train steps, beam-search evaluation with BLEU/ROUGE and
   diversity, model selection, adaptive loss weights), checkpoints
-  (``training.CheckpointManager``) with ``--resume``, and ``cli.evaluate``.
+  (``training.CheckpointManager``) with ``--resume``, and ``cli.evaluate``;
+* the rest of the JAX package's entry points -- the pretrained decoder
+  (``cli.convert_hf``, ``cli.train --bart-params``), data, tensor and
+  sequence parallelism (``parallel``), the wake twin (``wake``,
+  ``cli.wake_train``) and the reproduction chain (``cli.reproduce``).
 """
 
 __version__ = "0.1.0"

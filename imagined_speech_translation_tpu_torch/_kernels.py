@@ -2,9 +2,11 @@
 
 The sources under ``csrc/`` have a plain C interface.  On first use each is
 compiled with ``nvcc`` for Hopper (``sm_90a``), all at once in parallel, and
-linked into one shared library under ``build/kernels/`` at the repository
-root (named by a hash of the sources and headers, so an edit rebuilds), and
-loaded with ``ctypes``.  Nothing here runs at import: the CPU tests import
+linked into one shared library (named by a hash of the sources and headers,
+so an edit rebuilds), and loaded with ``ctypes``.  The library lives in the
+directory ``utils.cache.enable_persistent_cache`` chose (``build/kernels/``
+at the repository root unless a CLI or ``IST_COMPILE_CACHE`` chose
+another), read when the library is built or loaded.  Nothing here runs at import: the CPU tests import
 every module on a machine without ``nvcc``.
 
 Each :class:`Kernel` keeps a plain launch counter.  A wrapper calls
@@ -23,8 +25,9 @@ import threading
 import time
 from pathlib import Path
 
+from .utils.cache import kernel_build_dir
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("sosfilt.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_bwd_split.cu", "dropout_mask.cu")
 HEADERS = ("dropout_mask.cuh", "flash_bwd_kv.cuh", "flash_bwd_tf32.cuh", "sm90.cuh",
            "tf32.cuh")
@@ -52,6 +55,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_lib_dir: Path | None = None
 #: compiler output of the build that produced the loaded library (kept beside
 #: it, so a later process that loads it reads the same), and that build's seconds
 build_log = ""
@@ -69,12 +73,17 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def loaded_build_dir() -> Path | None:
+    """The directory the loaded library came from, ``None`` before a load."""
+    return _lib_dir
+
+
 def _build(so: Path, tag: str) -> str:
     """Compile every source to an object file, one ``nvcc`` each, all
     started together, then link them into ``so``; returns the compiler
     output (``-Xptxas -v`` register and spill lines included)."""
     nvcc = _nvcc()
-    objs = [BUILD_DIR / f"{Path(name).stem}{tag}.o" for name in SOURCES]
+    objs = [so.parent / f"{Path(name).stem}{tag}.o" for name in SOURCES]
     procs = [
         subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -99,17 +108,18 @@ def _build(so: Path, tag: str) -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
-    global _lib, build_log, build_seconds
+    global _lib, _lib_dir, build_log, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
         digest = hashlib.sha256()
         for name in SOURCES + HEADERS:
             digest.update((CSRC / name).read_bytes())
-        so = BUILD_DIR / f"libist_kernels-{digest.hexdigest()[:16]}.so"
+        build_dir = kernel_build_dir()
+        so = build_dir / f"libist_kernels-{digest.hexdigest()[:16]}.so"
         log_path = so.with_suffix(".log")
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            build_dir.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
             build_log = _build(so, f".{os.getpid()}")
             build_seconds = time.perf_counter() - t0
@@ -123,7 +133,7 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ist_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ist_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib, _lib_dir = lib, build_dir
         return lib
 
 

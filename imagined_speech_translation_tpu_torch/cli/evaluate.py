@@ -24,6 +24,7 @@ from pathlib import Path
 from ..config import replace_nested
 from ..data import ChineseCharTokenizer, EEGTextDataset, split_indices
 from ..training import EEGTrainer
+from ..utils.cache import enable_persistent_cache
 from .train import check_device, corpus_bow_indices, load_config
 
 logger = logging.getLogger(__name__)
@@ -43,6 +44,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     device = check_device(args.device)
+    enable_persistent_cache()
 
     cfg = load_config(args.config, args.overrides)
     tokenizer = ChineseCharTokenizer.from_vocab_file(args.vocab)

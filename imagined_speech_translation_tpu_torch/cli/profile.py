@@ -41,6 +41,7 @@ from ..config import default_config, replace_nested
 from ..decode import DecodeParams, build_generate_fn
 from ..models import build_model
 from ..models.bart import cross_entropy_loss
+from ..utils.cache import enable_persistent_cache
 from ..utils.profiling import annotate, trace
 from .profile_slice import device_summary
 
@@ -126,6 +127,7 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to run on the CPU")
+    enable_persistent_cache()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     cfg = profile_config(args.tiny)

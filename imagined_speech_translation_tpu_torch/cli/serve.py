@@ -48,6 +48,7 @@ from ..frontend import SignalFrontend
 from ..models import EEGDecodingModel, build_model, fold_batch_norm
 from ..parallel import make_mesh
 from ..parallel.mesh import Mesh, split_batch
+from ..utils.cache import enable_persistent_cache
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +81,7 @@ def build_decode_fn(cfg: Config, tokenizer, region_spec, model: EEGDecodingModel
     if mesh is not None and mesh.over_ranks:
         raise ValueError("a serving mesh lists the devices of its replicas "
                          "(make_mesh(n, 1, devices=[...]))")
+    enable_persistent_cache()
     wire = np.dtype(transfer_dtype if transfer_dtype is not None else np.float32)
     if fold_bn:
         model = fold_batch_norm(model)  # a folded copy, in float32
@@ -213,6 +215,7 @@ def build_decode_fn_from_args(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: pass device='cpu' (--device cpu) to serve on the CPU")
+    enable_persistent_cache()
     mesh = None
     if data_parallel > 1 or devices is not None:
         if devices is None:

@@ -45,6 +45,7 @@ from ..parallel.distributed import rank_device
 from ..training import EEGTrainer, get_top_k_vocab_indices
 from ..training.pretrained import graft_bart_params
 from ..utils import seed_everything
+from ..utils.cache import enable_persistent_cache
 from ..utils.metrics import NullLogger, get_logger
 
 logger = logging.getLogger(__name__)
@@ -107,6 +108,7 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO)
     device = check_device(args.device)
+    enable_persistent_cache()
     # no-op unless IST_COORDINATOR / IST_DISTRIBUTED are set
     initialize_distributed(device=device)
     device = rank_device(device)

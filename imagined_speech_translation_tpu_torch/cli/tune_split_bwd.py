@@ -30,6 +30,7 @@ import subprocess
 import sys
 
 from imagined_speech_translation_tpu_torch import _kernels
+from imagined_speech_translation_tpu_torch.utils.cache import kernel_build_dir
 
 
 #: each program: the kernel source it includes, and the name fragment of the
@@ -70,7 +71,7 @@ def main(argv=None) -> int:
     ap.add_argument("--program", choices=tuple(PROGRAMS), default="split_bwd")
     args = ap.parse_args(argv)
     src = _kernels.CSRC / "tune" / f"{args.program}.cu"
-    exe = _kernels.BUILD_DIR.parent / "tune" / args.program
+    exe = kernel_build_dir().parent / "tune" / args.program
     exe.parent.mkdir(parents=True, exist_ok=True)
     build = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(exe), str(src)],
                            capture_output=True, text=True)

@@ -124,22 +124,38 @@ class RegionLayerNorm(nn.Module):
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
-class RegionConv(nn.Module):
-    """Per-region 1-D conv with flax ``padding='SAME'`` (odd kernels, stride
-    1) on channel-first ``(B, R*in, T)``."""
+def same_length(length: int, stride: int) -> int:
+    """The output length of a flax ``padding='SAME'`` conv: ``ceil(T / s)``."""
+    return -(-length // stride)
 
-    def __init__(self, n_regions, in_ch, out_ch, kernel, *, groups=1, bias=True):
+
+def same_padding(length: int, kernel: int, stride: int) -> tuple[int, int]:
+    """flax ``padding='SAME'``'s ``(left, right)`` zeros: the total
+    ``max((ceil(T/s) - 1) * s + k - T, 0)``, its smaller half on the left."""
+    total = max((same_length(length, stride) - 1) * stride + kernel - length, 0)
+    return total // 2, total - total // 2
+
+
+class RegionConv(nn.Module):
+    """Per-region 1-D conv with flax ``padding='SAME'`` on channel-first
+    ``(B, R*in, T)``, any kernel and stride: ``ceil(T / s)`` outputs.  An
+    odd kernel at stride 1 pads ``k // 2`` on both sides; otherwise the
+    padding is asymmetric (:func:`same_padding`)."""
+
+    def __init__(self, n_regions, in_ch, out_ch, kernel, *, stride=1, groups=1, bias=True):
         super().__init__()
-        if kernel % 2 == 0:
-            raise ValueError(f"only odd conv kernels are ported, got {kernel}")
-        self.n_regions, self.groups, self.pad = n_regions, groups, kernel // 2
+        self.n_regions, self.groups, self.kernel, self.stride = n_regions, groups, kernel, stride
         self.weight = _param(n_regions, out_ch, in_ch // groups, kernel)
         self.bias = _param(n_regions, out_ch) if bias else None
 
     def forward(self, x):
         w = self.weight.flatten(0, 1)
         b = None if self.bias is None else self.bias.flatten()
-        return F.conv1d(x, w, b, padding=self.pad, groups=self.n_regions * self.groups)
+        groups = self.n_regions * self.groups
+        if self.stride == 1 and self.kernel % 2:
+            return F.conv1d(x, w, b, padding=self.kernel // 2, groups=groups)
+        x = F.pad(x, same_padding(x.shape[-1], self.kernel, self.stride))
+        return F.conv1d(x, w, b, stride=self.stride, groups=groups)
 
 
 class RegionNorm(nn.Module):
@@ -283,39 +299,58 @@ class MultiHeadAttention(nn.Module):
 
 
 class _ConvBN(nn.Module):
-    def __init__(self, n_regions, in_ch, out_ch, kernel, *, bias, norm, gn_groups):
+    def __init__(self, n_regions, in_ch, out_ch, kernel, *, stride=1, bias, norm, gn_groups):
         super().__init__()
-        self.conv = RegionConv(n_regions, in_ch, out_ch, kernel, bias=bias)
+        self.conv = RegionConv(n_regions, in_ch, out_ch, kernel, stride=stride, bias=bias)
         self.bn = RegionNorm(n_regions, out_ch, norm, gn_groups)
 
     def forward(self, x):
         return self.bn(self.conv(x))
 
 
+def stem_stages(cfg: RegionEncoderConfig):
+    """``(i, features, kernel, stride)`` of each conv stem stage, as the JAX
+    module zips them."""
+    return [(i, *s) for i, s in enumerate(zip(cfg.conv_channels, cfg.conv_kernels,
+                                               cfg.conv_strides))]
+
+
+def stem_length(cfg: RegionEncoderConfig, n_timepoints: int) -> int:
+    """The conv stem's output length: ``ceil(T / s)`` at each stage but the
+    depthwise one, which ignores its stride (as the JAX module does)."""
+    t = n_timepoints
+    for i, _, _, stride in stem_stages(cfg):
+        if i != cfg.depthwise_stage:
+            t = same_length(t, stride)
+    return t
+
+
 class RegionConvAttentionEncoder(nn.Module):
     """All regions' encoders: conv stem -> SE -> token attention -> pooled
-    feature.  Input ``(B, R, C_in, T)``, output ``(R, B, hidden_dim)``."""
+    feature.  Input ``(B, R, C_in, T)``, output ``(R, B, hidden_dim)``.
+
+    A stage with a stride other than 1 (the depthwise stage excepted) gives
+    ``ceil(T / s)`` tokens and a strided 1x1 residual, as in JAX; the
+    positions are sized from the stem's output length."""
 
     def __init__(self, cfg: RegionEncoderConfig, hidden_dim: int, *, n_regions: int,
                  in_channels: int, n_timepoints: int):
         super().__init__()
-        if any(s != 1 for s in cfg.conv_strides):
-            raise NotImplementedError("conv strides other than 1 are not ported")
         self.cfg, self.h, self.n_regions = cfg, hidden_dim, n_regions
         R, h = n_regions, hidden_dim
         norm = dict(norm=cfg.norm, gn_groups=cfg.groupnorm_groups)
         c_in = in_channels
-        for i, (feats, kern) in enumerate(zip(cfg.conv_channels, cfg.conv_kernels)):
+        for i, feats, kern, stride in stem_stages(cfg):
             if i == cfg.depthwise_stage:
                 self.add_module(f"stage{i}_depthwise", RegionConv(R, c_in, c_in, kern, groups=c_in))
                 self.add_module(f"stage{i}_pointwise", RegionConv(R, c_in, feats, 1))
                 self.add_module(f"stage{i}_bn", RegionNorm(R, feats, **norm))
             else:
-                if c_in != feats:
-                    self.add_module(
-                        f"stage{i}_residual", _ConvBN(R, c_in, feats, 1, bias=False, **norm)
-                    )
-                self.add_module(f"stage{i}_convbn", _ConvBN(R, c_in, feats, kern, bias=True, **norm))
+                if c_in != feats or stride != 1:
+                    self.add_module(f"stage{i}_residual", _ConvBN(
+                        R, c_in, feats, 1, stride=stride, bias=False, **norm))
+                self.add_module(f"stage{i}_convbn", _ConvBN(
+                    R, c_in, feats, kern, stride=stride, bias=True, **norm))
             c_in = feats
         self.se = SqueezeExcite(R, c_in, cfg.se_reduction)
         self.c_out = c_in
@@ -329,7 +364,7 @@ class RegionConvAttentionEncoder(nn.Module):
             self.cls_token = _param(R, 1, 1, h)
             self.temporal_tokens = _param(R, 1, nt, h)
             if cfg.use_positional_embedding:
-                self.pos_emb = _param(R, 1, n_timepoints + 1 + nt, h)
+                self.pos_emb = _param(R, 1, stem_length(cfg, n_timepoints) + 1 + nt, h)
             self.cross_scale_attn = MultiHeadAttention(
                 h, cfg.attn_heads[0] // 2, R, cfg.seq_shards, dropout=0.1, seq_axis=cfg.seq_axis
             )
@@ -354,7 +389,7 @@ class RegionConvAttentionEncoder(nn.Module):
     def _stem(self, x, gen):
         cfg = self.cfg
         light, med, heavy = cfg.dropout_tiers
-        for i in range(len(cfg.conv_channels)):
+        for i, *_ in stem_stages(cfg):
             if i == cfg.depthwise_stage:
                 y = getattr(self, f"stage{i}_depthwise")(x)
                 y = getattr(self, f"stage{i}_pointwise")(y)
@@ -369,9 +404,9 @@ class RegionConvAttentionEncoder(nn.Module):
     def forward(self, x, generator=None):
         """``generator``: the dropout stream in train mode, ``None`` in eval."""
         b, r, c, t = x.shape
-        x = self._stem(x.reshape(b, r * c, t), generator)  # (B, R*C, T)
-        # (B, R*C, T) -> (R, B, T, C): feature-last tokens, region leading
-        x = x.reshape(b, r, self.c_out, t).permute(1, 0, 3, 2)
+        x = self._stem(x.reshape(b, r * c, t), generator)  # (B, R*C, T')
+        # (B, R*C, T') -> (R, B, T', C): feature-last tokens, region leading
+        x = x.reshape(b, r, self.c_out, x.shape[-1]).permute(1, 0, 3, 2)
         with data_parallel.batch_on(1):
             return self._tokens(x, generator)
 
