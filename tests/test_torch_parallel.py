@@ -15,6 +15,9 @@ this process:
   per-rank token count in the cross-entropy, per-rank InfoNCE, diversity and
   variance terms, per-rank BatchNorm statistics.  Each naive run must miss
   the single-device loss, which the real one meets;
+* the step with dropout in bf16 mixed precision (the default config's), two
+  steps, against the port's single-device bf16 step, and the same with the
+  gradients' reduction skipped, which must miss it;
 * ``cli.train`` with ``--set parallel.data_axis=2`` for one epoch (an
   evaluation, a checkpoint, the test evaluation), then ``--resume`` for a
   second, against the same commands on one device; and with ``dcn_axis=2,
@@ -34,7 +37,10 @@ parameters by ``tests/test_torch_train_step.py``'s rule: within 1e-6 plus
 1e-3 of the step's largest learning rate, except at most 0.1% of the
 entries, which stay within 2.1 learning rates; BatchNorm running statistics
 within 1e-5 of the single device and equal on both ranks; predictions
-identical.
+identical.  In bf16 every logged metric within 1e-2 relative
+(``BF16_RTOL``): bf16 rounds the forward's products and the gradients
+before the float32 all-reduce, so two ranks' sums round otherwise than one
+device's.
 """
 
 import dataclasses
@@ -97,6 +103,7 @@ BOW = list(range(110, 126))
 TOTAL_STEPS = 10
 COMPONENTS = ("loss_ce", "loss_align", "loss_bow", "loss_div", "loss_var")
 NAIVE = ("ce_count", "coupled", "batchnorm")
+BF16_RTOL = 1e-2  # bf16 DP / TP steps against one device, every logged metric
 RANK_TIMEOUT_S = 300
 
 
@@ -165,13 +172,23 @@ def _naive(mp, kind):
         mp.setattr(dpx, "gather_rows", lambda t: t)
     elif kind == "batchnorm":
         mp.setattr(dpx, "all_reduce_sum", lambda t: t)
+    elif kind == "grad_skip":  # the gradients skip the reduction, the losses not
+        reduce = dpx.all_reduce_buckets
+        mp.setattr(dpx, "all_reduce_buckets",
+                   lambda ts, group=None: reduce(ts, group) if len(ts) == 1 else None)
 
 
-def _port_steps(setup, n_steps, *, dropout, mesh=None, naive=None):
-    """``n_steps`` port train steps from the setup's weights: on one device
-    without ``mesh``, on this rank's rows of each window with it.  Returns
-    the metrics and the final module state."""
-    cfg = setup["cfg"]
+def _mixed(cfg):
+    """``cfg`` under bf16 mixed precision (the default config's)."""
+    return cfg.replace(training=dataclasses.replace(cfg.training, mixed_precision=True))
+
+
+def _port_steps(setup, n_steps, *, dropout, mesh=None, naive=None, mixed=False):
+    """``n_steps`` port train steps from the setup's weights (in bf16 mixed
+    precision with ``mixed``): on one device without ``mesh``, on this rank's
+    rows of each window with it.  Returns the metrics and the final module
+    state."""
+    cfg = _mixed(setup["cfg"]) if mixed else setup["cfg"]
     module = TrainModule(cfg, bow_k=len(BOW))
     module.load_state_dict(setup["state_dict"])
     opt = FusedAdamW([n for n, _ in module.named_parameters()], cfg.training.optimizer,
@@ -267,6 +284,9 @@ def _rank_scenarios(root) -> dict:
     out["no_dropout"] = _port_steps(setup, 1, dropout=False, mesh=mesh)
     for kind in NAIVE:
         out[kind] = _port_steps(setup, 1, dropout=False, mesh=mesh, naive=kind)
+    out["bf16"] = _port_steps(setup, 2, dropout=True, mesh=mesh, mixed=True)
+    out["bf16_grad_skip"] = _port_steps(setup, 2, dropout=True, mesh=mesh, mixed=True,
+                                        naive="grad_skip")
     rows, dp = [2 * out["shard"], 2 * out["shard"] + 1], dpx.DataParallel.of(mesh)
     out["coupled_terms"] = _coupled_losses(rows, dp)
     with pytest.MonkeyPatch.context() as mp:
@@ -380,7 +400,8 @@ def ranks(setup):
 def single(setup):
     """The port's single-device steps on the same windows."""
     return {"dropout": _port_steps(setup, 2, dropout=True),
-            "no_dropout": _port_steps(setup, 1, dropout=False)}
+            "no_dropout": _port_steps(setup, 1, dropout=False),
+            "bf16": _port_steps(setup, 2, dropout=True, mixed=True)}
 
 
 def _assert_metrics_close(got, want, rtol):
@@ -429,6 +450,28 @@ def test_dp_step_weights_and_batch_stats_match_one_device(setup, ranks, single):
     _assert_params_close(ranks[0]["dropout"][1], want, _lr_max(setup["cfg"], 2))
     for key, v in ranks[0]["dropout"][1].items():
         assert torch.equal(v, ranks[1]["dropout"][1][key]), key
+
+
+def _rel_gaps(got, want):
+    """Each logged metric's relative gap, over the steps."""
+    return {f"{k}@{i}": abs(g[k] - w[k]) / abs(w[k]) for i, (g, w) in enumerate(zip(got, want))
+            for k in w}
+
+
+def test_dp_bf16_step_matches_one_device(ranks, single):
+    """Two bf16 mixed-precision steps with dropout: every logged metric within
+    BF16_RTOL of the one-device bf16 step, while the same run with the
+    gradients' reduction skipped (each rank steps on its own rows'
+    gradients) lies beyond it."""
+    want = single["bf16"][0]
+    for rank in ranks:
+        _assert_metrics_close(rank["bf16"][0][0], want[0], BF16_RTOL)
+        _assert_metrics_close(rank["bf16"][0][1], want[1], BF16_RTOL)
+        assert max(_rel_gaps(rank["bf16_grad_skip"][0], want).values()) > BF16_RTOL
+    for key, v in ranks[0]["bf16"][1].items():
+        assert torch.equal(v, ranks[1]["bf16"][1][key]), key
+    # bf16 rounds: the mixed-precision run is not the float32 run
+    assert max(_rel_gaps(single["bf16"][0], single["dropout"][0]).values()) > 1e-5
 
 
 def test_dp_step_differs_without_dropout(ranks, single):

@@ -9,8 +9,9 @@ returns what it observed as plain data (random access keys and wall-clock
 times left out).  Each test case runs one scenario through both packages
 and requires equal results; the scenarios keep the original tests'
 assertions too.  ``tests/test_product_journey.py``'s journey runs through
-the port's ``WssService`` with the JAX package's companion client.  Besides,
-each copied module's code (its docstrings and comments aside) must be the
+the port's ``WssService`` with the JAX package's companion client, and with
+the port's companion (client, BLE link, device page) against the JAX
+companion on the JAX service.  Besides, each copied module's code (its docstrings and comments aside) must be the
 original's, and the package exports the same names.
 """
 
@@ -31,7 +32,8 @@ import numpy as np
 import pytest
 
 MODULES = ("protocol", "streaming", "batcher", "session", "dsl", "auth", "personalization",
-           "services", "actions", "commands", "server", "worker")
+           "services", "actions", "commands", "server", "worker", "adapters", "media",
+           "reminders")
 
 
 def _runtime(pkg):
@@ -812,43 +814,73 @@ def test_services_scenario_matches_jax(scenario):
 JOURNEY_NAMES = ("DecodePipeline", "RingBuffer", "SessionRegistry", "Windower",
                  "build_command_registry", "parse_wifi_qr", "wifi_qr_payload", "WssService",
                  "ServiceBundle")
+COMPANION_NAMES = ("CompanionClient", "Contact", "InMemoryBle", "InMemoryPhone",
+                   "InProcessTransport", "PhoneActions", "Preferences", "is_online", "pair")
+JOURNEYS = ["test_full_product_journey", "test_journey_rejects_streaming_before_auth"]
 
 
-@pytest.mark.parametrize("journey", ["test_full_product_journey",
-                                     "test_journey_rejects_streaming_before_auth"])
+def _journey_run(rt, journey, where, monkeypatch, companion=None):
+    """One journey of ``tests/test_product_journey.py`` with ``rt``'s runtime
+    classes in place of the JAX package's, and with ``companion`` (a
+    package's ``companion``) in place of the JAX companion, the device page
+    the journey imports inside it included; returns what it leaves in the
+    service (the decoded batch shapes, the store, the pipelines)."""
+    import tests.test_product_journey as tj
+    import imagined_speech_translation_tpu.companion as jax_companion
+    import imagined_speech_translation_tpu.companion.webui as jax_webui
+
+    services = []
+    make_service = tj.make_service
+
+    def recording(decoded_log):
+        svc, bundle = make_service(decoded_log)
+        services.append((svc, bundle, decoded_log))
+        return svc, bundle
+
+    with monkeypatch.context() as m:
+        for name in JOURNEY_NAMES:
+            for mod in (rt.pkg, rt.commands, rt.personalization, rt.server, rt.services):
+                if hasattr(mod, name):
+                    m.setattr(tj, name, getattr(mod, name))
+                    break
+        if companion is not None:
+            for name in COMPANION_NAMES:
+                m.setattr(tj, name, getattr(companion.ble if name == "pair" else companion, name))
+            m.setattr(jax_companion, "DeviceUI", companion.DeviceUI)
+            m.setattr(jax_webui, "serve", companion.webui.serve)
+            assert tj.CompanionClient is companion.CompanionClient
+        m.setattr(tj, "make_service", recording)
+        assert tj.WssService is rt.server.WssService
+        fn = getattr(tj, journey)
+        fn(where) if "tmp_path" in inspect.signature(fn).parameters else fn()
+    svc, bundle, decoded = services[0]
+    return (decoded, sorted(bundle.store.data.items()), len(svc._pipelines),
+            len(svc._actors), len(svc.registry))
+
+
+@pytest.mark.parametrize("journey", JOURNEYS)
 def test_product_journey_through_the_port_service(journey, tmp_path, monkeypatch):
     """The journey's own assertions hold with the port's runtime classes in
     place of the JAX package's, and what it leaves in the service (the
     decoded batch shapes, the store, the pipelines) equals the JAX run's."""
-    import tests.test_product_journey as tj
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    port = _journey_run(PORT, journey, tmp_path / "port", monkeypatch)
+    assert port == _journey_run(JAX, journey, tmp_path / "jax", monkeypatch)
 
-    def journey_run(rt, where):
-        services = []
-        make_service = tj.make_service
 
-        def recording(decoded_log):
-            svc, bundle = make_service(decoded_log)
-            services.append((svc, bundle, decoded_log))
-            return svc, bundle
-
-        with monkeypatch.context() as m:
-            for name in JOURNEY_NAMES:
-                for mod in (rt.pkg, rt.commands, rt.personalization, rt.server, rt.services):
-                    if hasattr(mod, name):
-                        m.setattr(tj, name, getattr(mod, name))
-                        break
-            m.setattr(tj, "make_service", recording)
-            assert tj.WssService is rt.server.WssService
-            fn = getattr(tj, journey)
-            fn(where) if "tmp_path" in inspect.signature(fn).parameters else fn()
-        svc, bundle, decoded = services[0]
-        return (decoded, sorted(bundle.store.data.items()), len(svc._pipelines),
-                len(svc._actors), len(svc.registry))
+@pytest.mark.parametrize("journey", JOURNEYS)
+def test_product_journey_with_the_port_companion(journey, tmp_path, monkeypatch):
+    """The same journey with the port's companion (client, BLE link, phone
+    relays, preferences, WiFi liveness, the device page) driving the port's
+    service, against the JAX companion driving the JAX service."""
+    import imagined_speech_translation_tpu.companion as jax_companion
+    import imagined_speech_translation_tpu_torch.companion as port_companion
 
     (tmp_path / "port").mkdir()
     (tmp_path / "jax").mkdir()
-    port = journey_run(PORT, tmp_path / "port")
-    assert port == journey_run(JAX, tmp_path / "jax")
+    port = _journey_run(PORT, journey, tmp_path / "port", monkeypatch, port_companion)
+    assert port == _journey_run(JAX, journey, tmp_path / "jax", monkeypatch, jax_companion)
 
 
 # ---------------------------------------------------------------------------
@@ -856,7 +888,7 @@ def test_product_journey_through_the_port_service(journey, tmp_path, monkeypatch
 # ---------------------------------------------------------------------------
 
 
-def _code(module) -> str:
+def _stripped(module) -> ast.Module:
     """The module's AST without docstrings (comments never reach it)."""
     tree = ast.parse(inspect.getsource(module))
     for node in ast.walk(tree):
@@ -865,7 +897,11 @@ def _code(module) -> str:
             if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant) \
                     and isinstance(body[0].value.value, str):
                 node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
+
+
+def _code(module) -> str:
+    return ast.dump(_stripped(module))
 
 
 @pytest.mark.parametrize("name", MODULES)

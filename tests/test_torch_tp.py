@@ -10,6 +10,9 @@ results to a file, and the tests hold them to runs made in this process:
 * the TP train step (``make_mesh(1, 2)``: one batch shard, two model ranks,
   the ``_TP_RULES`` tensors split) with dropout on, two steps, against the
   port's single-device step on the same windows (the same dropout bits);
+* the same step in bf16 mixed precision (the default config's) against the
+  port's single-device bf16 step, and with Megatron's *f* left without its
+  backward all-reduce, which must miss it;
 * the same step with dropout neutralised against JAX's step on a
   ``make_mesh(4, 2)`` mesh with ``shard_train_state(tp=True)``, one step;
 * ``ring_attention`` over a ``seq`` axis of two ranks: forward and
@@ -32,7 +35,8 @@ Sizes: ``tests.helpers.tiny_config``; the steps as in
 ``tests/test_torch_parallel.py`` (T = 124, micro-batch 4, accumulation 2).
 
 Tolerances (float32): losses within 2e-4 relative (JAX's
-``tests/test_parallel.py``), the trainer's within 1e-4; parameters by
+``tests/test_parallel.py``), the trainer's within 1e-4; in bf16 every logged
+metric within 1e-2 relative (``BF16_RTOL``); parameters by
 ``tests/test_torch_train_step.py``'s learning-rate rule; the ring forward
 within 2e-5 and its gradients within 3e-4 (JAX's
 ``tests/test_context_parallel.py``), 3e-2 in bfloat16; the encoder's forward
@@ -97,6 +101,7 @@ from imagined_speech_translation_tpu_torch.training import (
 from imagined_speech_translation_tpu_torch.training.checkpoint import full_state_dicts
 from imagined_speech_translation_tpu_torch.training.pretrained import graft_bart_params
 from tests.test_torch_parallel import (
+    BF16_RTOL,
     BOW,
     COMPONENTS,
     RANK_TIMEOUT_S,
@@ -107,7 +112,9 @@ from tests.test_torch_parallel import (
     _cli_run,
     _free_port,
     _lr_max,
+    _mixed,
     _port_steps,
+    _rel_gaps,
     _tensors,
 )
 from tests.test_torch_parallel import setup as _parallel_setup
@@ -123,13 +130,15 @@ ENC_T = 33          # 33 + 4 special tokens = 37, padded to 38
 # ---------------------------------------------------------------------------
 
 
-def _tp_steps(setup, n_steps, *, dropout, mesh):
+def _tp_steps(setup, n_steps, *, dropout, mesh, mixed=False, skip_f=False):
     """``n_steps`` port train steps from the setup's weights over ``mesh``
     with the ``_TP_RULES`` tensors split (and this rank's rows of each
-    window when the mesh has more than one batch shard); returns the
-    metrics and the whole module state and first moments (gathered from
-    the model ranks)."""
-    cfg = setup["cfg"]
+    window when the mesh has more than one batch shard), in bf16 mixed
+    precision with ``mixed``; returns the metrics and the whole module state
+    and first moments (gathered from the model ranks).  ``skip_f`` leaves
+    Megatron's *f* without its backward all-reduce, so each rank's gradients
+    below a column-parallel layer are its own share only."""
+    cfg = _mixed(setup["cfg"]) if mixed else setup["cfg"]
     module = TrainModule(cfg, bow_k=len(BOW))
     module.load_state_dict(setup["state_dict"])
     opt = FusedAdamW([n for n, _ in module.named_parameters()], cfg.training.optimizer,
@@ -141,6 +150,8 @@ def _tp_steps(setup, n_steps, *, dropout, mesh):
     with pytest.MonkeyPatch.context() as mp:
         if not dropout:
             _no_dropout_port(mp)
+        if skip_f:
+            mp.setattr(tpx, "copy_to_model", lambda t: t)
         for i in range(n_steps):
             batch = shard_batch(mesh, setup["batches"][i], batch_axis=1)
             state, metrics = step(state, _tensors(batch), torch.Generator().manual_seed(i))
@@ -236,6 +247,8 @@ def _rank_scenarios(root) -> dict:
     out = {"coords": mesh.coords()}
     out["dropout"] = _tp_steps(setup, 2, dropout=True, mesh=mesh)
     out["no_dropout"] = _tp_steps(setup, 1, dropout=False, mesh=mesh)
+    out["bf16"] = _tp_steps(setup, 2, dropout=True, mesh=mesh, mixed=True)
+    out["bf16_skip_f"] = _tp_steps(setup, 2, dropout=True, mesh=mesh, mixed=True, skip_f=True)
 
     out["graft"] = _tp_graft(setup, mesh, root / f"bart{mesh.coords()['model']}.pt")
 
@@ -347,7 +360,8 @@ def four_ranks(setup):
 def single(setup):
     """The port's single-device steps on the same windows."""
     return {"dropout": _port_steps(setup, 2, dropout=True),
-            "no_dropout": _port_steps(setup, 1, dropout=False)}
+            "no_dropout": _port_steps(setup, 1, dropout=False),
+            "bf16": _port_steps(setup, 2, dropout=True, mixed=True)}
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +402,20 @@ def test_tp_graft_takes_each_ranks_slices(ranks):
     for rank in ranks:
         assert all(equal for _, equal in rank["graft"].values())
         assert sum(split for split, _ in rank["graft"].values()) == 34  # 2 layers x 17
+
+
+def test_tp_bf16_step_matches_one_device(ranks, single):
+    """Two bf16 mixed-precision TP steps with dropout: every logged metric
+    within BF16_RTOL of the one-device bf16 step, the whole weights equal on
+    both ranks; with *f*'s backward all-reduce skipped the run lies beyond
+    the bound."""
+    want = single["bf16"][0]
+    for rank in ranks:
+        for step in (0, 1):
+            _assert_metrics_close(rank["bf16"][0][step], want[step], BF16_RTOL)
+        assert max(_rel_gaps(rank["bf16_skip_f"][0], want).values()) > BF16_RTOL
+    for key, v in ranks[0]["bf16"][1].items():
+        assert torch.equal(v, ranks[1]["bf16"][1][key]), key
 
 
 def test_tp_step_differs_without_dropout(ranks, single):
