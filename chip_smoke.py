@@ -184,7 +184,28 @@ Phases, each failing loudly (non-zero exit, no final line):
    logits on the card and on the CPU within 1e-4 of max |ref| with equal
    predictions; then the twin's Adam step at the published lunar catalog's
    shape, (76, 81,770, 2) synthetic impulse sequences at batch 32 (fc1
-   1,308,288 x 128): finite losses falling, s/step and peak memory.
+   1,308,288 x 128): finite losses falling, s/step and peak memory;
+19. ablations: the paper's Table-24 variants (``cli.ablation_sweep.
+   VARIANTS``, by the sweep's override paths) on ``default_config()`` at
+   full width, random weights from seed 0: a bf16 serving batch of 16
+   (BN folded, beam 3 pinned to 16) with exactly 1 IIR and 5 flash forward
+   launches (0 for the two variants without token attention); the f32
+   encoder at B = 2 through the kernels against their plain twins on the
+   card (1e-3 of max |plain|); two bf16 steps at micro-batch 4 x
+   accumulation 2 with exactly 5 + 5 flash launches a micro-step (or 0),
+   the weights still at step 0 and moved at step 1; s a batch, s a step,
+   peak memory;
+20-22 run in a child process beside phases 16-17 (the experiment CLIs are
+   bound by their host work; 16-17's times are correctness runs'):
+20. train_proof: ``cli.train_proof`` at its widths (4 epochs, then
+   ``--resume`` to 14, cut from 20): its criteria bind (loss falls, val
+   BLEU-4 above 0, BLEU-1 rises, weights move, tables logged, the resume
+   continues);
+21. accum_curve: ``cli.accum_curve_check`` at full width (4 x 8, 24
+   windows, cut from 40): the bf16 carry and first moment within 2% of the
+   float32 curve in every window, both curves falling, exact launches;
+22. ablation_sweep: ``cli.ablation_sweep --only full pure_cnn --epochs 1``
+   at the tool's widths: both rows and a generated verdict line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
@@ -196,7 +217,8 @@ tensor-parallel training path (both ranks' ``cli.train``), the
 context-parallel encoder (both ranks; the ring launches no kernel), the
 reproduce path (the local chain's convert and parity), the wake path
 (``cli.wake_train``, which launches none), the bf16 data- and
-tensor-parallel training paths and the uplink path (and, for the
+tensor-parallel training paths, the uplink path, the ablation variants'
+serving batches and training steps, and the three experiment CLIs (and, for the
 flash forward and the fused backward, the variants their checks ran and
 the multi_device phase's mapping checks), and the one before that the
 card's name and power limit.
@@ -2884,6 +2906,345 @@ BF16_STEP_RTOL = 1e-2  # bf16 DP / TP against one process (tests/test_torch_para
 DP_DQ_F32_REL = 1e-5  # dQ's f32 atomic sums in another order, relative to max |dQ|
 
 
+def exact_launches(tag: str, launches: dict, want: dict) -> None:
+    """Exact launch counts: ``want`` names the kernels the path launches,
+    every other kernel must not have launched."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        raise AssertionError(f"[{tag}] launched {launches}, want {full}")
+
+
+def phase_ablations(smi: str):
+    """19. The paper's ablation family (Table 24): each of
+    ``cli.ablation_sweep.VARIANTS`` applied to ``default_config()`` at full
+    width (its override paths, as the sweep passes them to ``cli.train``),
+    random weights from seed 0.  (a) One bf16 serving batch through
+    ``cli.serve.build_decode_fn`` (B = 16, T = 1651, BN folded, beam 3 pinned
+    to 16): 1 IIR launch and 5 flash forward launches (0 without token
+    attention), ids in range; s a batch after a warm-up.  (b) One float32
+    encoder forward (B = 2, TF32 off) of the same weights on the same raw
+    windows through the kernels (IIR, flash forward) and through their plain
+    twins on the card: fused features within 1e-3 of max |plain|.  (c) Two
+    bf16 steps of ``make_train_step`` at micro-batch 4 x accumulation 2 (a
+    cut of the default 8): exactly 5 flash forward and 5 fused backward
+    launches a micro-step (0 without token attention), finite losses, the
+    weights unchanged by step 0 (the warmup's learning rate is 0) and moved
+    by step 1; s a step and peak memory.  Returns the serving and the
+    training launches, summed over the variants."""
+    import numpy as np
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli.ablation_sweep import (
+        VARIANTS,
+        variant_config,
+    )
+    from imagined_speech_translation_tpu_torch.cli.profile_slice import (
+        synthetic_montage,
+        synthetic_train_batch,
+        synthetic_vocab,
+    )
+    from imagined_speech_translation_tpu_torch.cli.serve import build_decode_fn
+    from imagined_speech_translation_tpu_torch.config import default_config, replace_nested
+    from imagined_speech_translation_tpu_torch.data import RegionSpec
+    from imagined_speech_translation_tpu_torch.frontend import SignalFrontend
+    from imagined_speech_translation_tpu_torch.frontend import frontend as frontend_module
+    from imagined_speech_translation_tpu_torch.frontend.filters import sosfilt_reference
+    from imagined_speech_translation_tpu_torch.models import layers
+    from imagined_speech_translation_tpu_torch.ops.flash_attention import (
+        flash_attention_reference,
+    )
+    from imagined_speech_translation_tpu_torch.training import (
+        AdaptiveLossScheduler,
+        FusedAdamW,
+        build_train_module,
+        create_train_state,
+        get_top_k_vocab_indices,
+        make_train_step,
+    )
+
+    base = default_config()
+    base = replace_nested(base, "generation.min_length", base.generation.max_length)
+    base = replace_nested(base, "training.grad_accum_steps", 2)
+    T = base.data.n_timepoints
+    tok = recording_tokenizer_class()(synthetic_vocab(base.model.bart.vocab_size))
+    spec = RegionSpec.from_channel_names(synthetic_montage())
+    R, C = spec.channel_mask.shape
+    gather = torch.as_tensor(spec.gather_indices.reshape(-1), device=DEVICE)
+    mask = torch.as_tensor(spec.channel_mask, device=DEVICE)
+    frontend = SignalFrontend(base.frontend)
+    bow = get_top_k_vocab_indices(tok, base.training.loss.bow_vocab_size)
+    windows = np.random.default_rng(1).normal(size=(16, 125, T)).astype(np.float32)
+    serving = dict.fromkeys(_kernels.launch_counts(), 0)
+    training = dict(serving)
+    rows = []
+
+    def encode(model, raw):
+        with torch.inference_mode():
+            clean = frontend.preprocess(torch.from_numpy(raw).to(DEVICE))
+            return model.encode(clean[:, gather].reshape(len(raw), R, C, T), mask)[0].float()
+
+    for name, label, _, overrides in VARIANTS:
+        cfg = variant_config(base, name)
+        tc = cfg.training
+        attn = 0 if cfg.model.brain_encoder.region_encoder.cnn_only else 5
+        t0 = time.perf_counter()
+        module = build_train_module(cfg, len(bow), seed=0, device=DEVICE)
+        n_params = sum(p.numel() for p in module.parameters())
+        built = time.perf_counter() - t0
+
+        # (a) one bf16 serving batch
+        model = module.model.eval()
+        decode_fn = build_decode_fn(cfg, tok, spec, model, device=DEVICE, fold_bn=True,
+                                    compute_dtype=torch.bfloat16)
+        decode_fn(windows)  # warm-up
+        _kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts = decode_fn(windows)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = _kernels.launch_counts()
+        exact_launches(f"ablations {name} serving", launches,
+                              {"sosfilt": 1, "flash_fwd": attn})
+        ids = np.asarray(tok.ids)
+        if (len(texts) != 16 or ids.shape != (16, cfg.generation.max_length)
+                or ids.min() < 0 or ids.max() >= cfg.model.bart.vocab_size):
+            raise AssertionError(f"[ablations] {name}: ids {ids.shape} [{ids.min()}, "
+                                 f"{ids.max()}]")
+        for k, n in launches.items():
+            serving[k] += n
+        del decode_fn
+
+        # (b) float32 encoder: kernels against their plain twins on the card
+        with strict_f32():
+            _kernels.reset_launch_counts()
+            got = encode(model, windows[:2])
+            kernel_launches = _kernels.launch_counts()
+            attention, iir = layers.dot_product_attention, frontend_module.sosfilt
+            layers.dot_product_attention = (
+                lambda q, k, v, **kw: flash_attention_reference(q, k, v)[0])
+            frontend_module.sosfilt = sosfilt_reference
+            try:
+                _kernels.reset_launch_counts()
+                want = encode(model, windows[:2])
+                plain_launches = _kernels.launch_counts()
+            finally:
+                layers.dot_product_attention, frontend_module.sosfilt = attention, iir
+        exact_launches(f"ablations {name} f32 encoder", kernel_launches,
+                              {"sosfilt": 1, "flash_fwd": attn})
+        exact_launches(f"ablations {name} f32 plain encoder", plain_launches, {})
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not rel <= 1e-3:
+            raise AssertionError(f"[ablations] {name}: f32 encoder through the kernels "
+                                 f"{rel:.3e} of max |plain| (bound 1e-3)")
+
+        # (c) two bf16 training steps at micro-batch 4 x accumulation 2
+        names = [n for n, _ in module.named_parameters()]
+        opt = FusedAdamW(names, tc.optimizer, total_steps=2)
+        state = create_train_state(module, opt,
+                                   AdaptiveLossScheduler(tc.loss).initial_weights())
+        step_fn = make_train_step(module, opt, cfg, bow)
+        probes = [p for n, p in module.named_parameters()
+                  if n.endswith(("stage0_convbn.conv.weight", "eeg_to_bart_fc.weight"))]
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        times, losses = [], []
+        for i in range(2):
+            batch = {k: v.to(DEVICE) for k, v in synthetic_train_batch(
+                cfg, tc.grad_accum_steps, tc.batch_size, cfg.data.max_length, 100 + i).items()}
+            before = [p.detach().clone() for p in probes]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch, torch.Generator().manual_seed(i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            m = {k: float(v) for k, v in metrics.items()}
+            moved = max((p.detach() - b).abs().max().item() for p, b in zip(probes, before))
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"[ablations] {name} step {i}: non-finite {m}")
+            if (i == 0) != (moved == 0.0):
+                raise AssertionError(f"[ablations] {name} step {i} moved the weights by "
+                                     f"{moved}")
+            losses.append(m["loss"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = _kernels.launch_counts()
+        micro = 2 * tc.grad_accum_steps
+        exact_launches(f"ablations {name} training", launches,
+                              {"flash_fwd": attn * micro, "flash_bwd": attn * micro})
+        for k, n in launches.items():
+            training[k] += n
+        rows.append(dict(name=name, params_m=round(n_params / 1e6, 1), serve_s=serve_s,
+                         encoder_rel=rel, step_s=times, peak_gib=peak, losses=losses))
+        log(f"[ablations] {name} ({label}; {' '.join(overrides) or 'no overrides'}): "
+            f"{n_params / 1e6:.1f}M params built in {built:.1f} s; (a) bf16 serving "
+            f"{serve_s:.4f} s/batch of 16, launches 1 IIR + {attn} flash fwd; (b) f32 encoder "
+            f"{rel:.3e} of max |plain| (bound 1e-3); (c) bf16 steps {times[0]:.3f} / "
+            f"{times[1]:.3f} s (4 x {tc.grad_accum_steps}), losses "
+            f"{[round(v, 4) for v in losses]}, {attn} + {attn} flash launches a micro-step, "
+            f"peak memory {peak:.2f} GiB, on {smi}")
+        del state, step_fn, opt, module, model
+        torch.cuda.empty_cache()
+    log("[ablations] " + json.dumps({"card": smi, "variants": rows}))
+    return serving, training
+
+
+def run_experiments(smi: str):
+    """20-22. The experiment CLIs through their entry points, each into a
+    scratch directory under ``build/`` (removed afterwards), with their
+    launches: ``cli.train_proof`` (4 epochs, then 10 more),
+    ``cli.accum_curve_check`` at full width (24 windows) and
+    ``cli.ablation_sweep --only full pure_cnn --epochs 1`` at the sweep's
+    default widths."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="experiments_smoke_", dir=build))
+    try:
+        return (timed(phase_train_proof, smi, tmp), timed(phase_accum_curve, smi, tmp),
+                timed(phase_ablation_sweep, smi, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def experiments_child(out: str, smi: str) -> int:
+    """:func:`run_experiments` in a process of its own; writes the three
+    paths' launches, counted in this process, to ``out``."""
+    with open(out, "w") as f:
+        json.dump(run_experiments(smi), f)
+    return 0
+
+
+def start_experiments(smi: str, tmp):
+    """Starts phases 20-22 in a child process (:func:`experiments_child`),
+    its output to a log under ``tmp``.  The experiment CLIs are bound by
+    their host work, so ``main`` runs them beside the multi_device and
+    tp_cp phases, whose times are correctness runs' (two ranks share the
+    card), not beside a phase that times a kernel or a path."""
+    import os
+    from pathlib import Path
+
+    out, log_path = tmp / "experiments.json", tmp / "experiments.log"
+    code = "import chip_smoke, sys; sys.exit(chip_smoke.experiments_child(*sys.argv[1:]))"
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(out), smi], stdout=f,
+                                stderr=subprocess.STDOUT, env=dict(os.environ),
+                                cwd=str(Path(__file__).resolve().parent))
+    return proc, out, log_path, time.perf_counter()
+
+
+def finish_experiments(run, timeout_s: float = 900):
+    """Waits for :func:`start_experiments`' child (killed at the deadline),
+    logs its output and returns its launches; raises if it failed."""
+    proc, out, log_path, t0 = run
+    try:
+        rc = proc.wait(timeout=max(timeout_s - (time.perf_counter() - t0), 1.0))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in log_path.read_text().splitlines():
+        if line.startswith(("[", "===", "TRAIN PROOF", "ABLATION SWEEP", "Traceback")) or (
+                rc != 0 and not line.startswith("INFO")):
+            log(line)
+    log(f"[time] experiments (a child process beside the multi_device and tp_cp phases) "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"the experiment phases exited {rc}")
+    return json.loads(out.read_text())
+
+
+def _cli_launches(tag: str, main, argv: list):
+    """``main(argv)``'s exit code and launches, with its seconds logged."""
+    from imagined_speech_translation_tpu_torch import _kernels
+
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = main(argv)
+    launches = _kernels.launch_counts()
+    log(f"[{tag}] exit {rc} in {time.perf_counter() - t0:.1f} s, launches {launches}")
+    return rc, launches
+
+
+def phase_train_proof(smi: str, tmp):
+    """20. ``cli.train_proof`` at its widths (hidden 384, 3 + 3 BART layers,
+    T = 256, 320 windows, bf16; 4 epochs, then ``--resume`` to 14, a cut of
+    its default 20 for the script's time; val BLEU-4 first leaves 0 near
+    epoch 9): exit 0, so the loss falls, val BLEU-4 rises above 0, val
+    BLEU-1 rises, the adaptive weights move, prediction tables are logged
+    and the resumed stage starts at epoch 4; flash forward and fused
+    backward launched."""
+    from imagined_speech_translation_tpu_torch.cli import train_proof
+
+    out = tmp / "train_proof"
+    rc, launches = _cli_launches("train_proof", train_proof.main,
+                                 ["--device", DEVICE, "--out", str(out), "--epochs2", "14"])
+    s = json.loads((out / "PROOF_SUMMARY.json").read_text())
+    log(f"[train_proof] loss {s['first_losses_mean']:.4f} -> {s['last_losses_mean']:.4f} "
+        f"(means of the first and last 10 of {s['n_step_records']} logged steps); val BLEU-4 "
+        f"{s['val_bleu4']}; val BLEU-1 {s['val_bleu1']}; weights {s['adaptive_weights_first']}"
+        f" -> {s['adaptive_weights_last']}; criteria {s['criteria']}; on {smi}")
+    if rc != 0 or not s["ok"]:
+        raise AssertionError(f"[train_proof] failed: {s['criteria']}")
+    if not (launches["flash_fwd"] and launches["flash_bwd"]):
+        raise AssertionError(f"[train_proof] launched no flash kernel: {launches}")
+    return launches
+
+
+def phase_accum_curve(smi: str, tmp):
+    """21. ``cli.accum_curve_check`` at full width (``default_config()``,
+    micro-batch 4 x accumulation 8) over 4 fixed batches for 24 windows (a
+    cut of its default 40 for the script's time), the float32 carry and
+    first moment against the bf16 defaults: exit 0 (every window's loss
+    within 2% of the reference arm's, both curves falling) and 5 + 5 flash
+    launches a micro-step in both arms."""
+    from imagined_speech_translation_tpu_torch.cli import accum_curve_check
+
+    path = tmp / "accum_curve.json"
+    rc, launches = _cli_launches("accum_curve", accum_curve_check.main,
+                                 ["--device", DEVICE, "--json", str(path), "--windows", "24"])
+    r = json.loads(path.read_text())
+    log(f"[accum_curve] reference {r['reference_numerics']} {r['ref_first_last']}, fast "
+        f"{r['fast_numerics']} {r['fast_first_last']}: max rel delta {r['max_rel_delta']:.3e}, "
+        f"final {r['final_rel_delta']:.3e} (tol {r['tol']}); s an arm {r['seconds']}, "
+        f"{r['optimizer']}; on {smi}")
+    want = 5 * r["accum"] * r["windows"] * 2
+    exact_launches("accum_curve", launches, {"flash_fwd": want, "flash_bwd": want})
+    if rc != 0 or not r["ok"]:
+        raise AssertionError(f"[accum_curve] the bf16 curve left the f32 one: {r}")
+    return launches
+
+
+def phase_ablation_sweep(smi: str, tmp):
+    """22. ``cli.ablation_sweep --only full pure_cnn --epochs 1`` at the
+    sweep's default widths (hidden 384, T = 384, echo corpus of 640
+    windows): exit 0, ``results.json`` and ``TABLE.md`` with both rows and
+    a generated verdict line; the full model's flash launches."""
+    from imagined_speech_translation_tpu_torch.cli import ablation_sweep
+
+    out = tmp / "ablations"
+    rc, launches = _cli_launches("ablation_sweep", ablation_sweep.main, [
+        "--device", DEVICE, "--out", str(out), "--only", "full", "pure_cnn", "--epochs", "1"])
+    payload = json.loads((out / "results.json").read_text())
+    table = (out / "TABLE.md").read_text()
+    verdicts = [ln for ln in table.splitlines() if ln.startswith("* ordering")]
+    for name, r in payload["results"].items():
+        log(f"[ablation_sweep] {name}: loss {r['first_loss']} -> {r['last_loss']}, best BLEU-1 "
+            f"{r['best_bleu1']}, BLEU-4 {r['best_bleu4']}, exact match {r['best_em']}")
+    log(f"[ablation_sweep] verdict lines {verdicts}; on {smi}")
+    if rc != 0 or list(payload["results"]) != ["full", "pure_cnn"] or not verdicts or not all(
+            f"| {r['label']} |" in table for r in payload["results"].values()):
+        raise AssertionError(f"[ablation_sweep] exit {rc}, rows {list(payload['results'])}, "
+                             f"verdict lines {verdicts}")
+    if not (launches["flash_fwd"] and launches["flash_bwd"]):
+        raise AssertionError(f"[ablation_sweep] the full model launched no flash kernel: "
+                             f"{launches}")
+    return launches
+
+
 def beyond_one_ulp(a, b, top: float) -> float:
     """max(|a - b| - one unit in the last place of a's dtype at the larger
     magnitude, 0) / ``top``: what a difference leaves after a rounding of
@@ -3860,9 +4221,10 @@ def multi_card_tp() -> int:
 def run_trainer_and_server(smi: str):
     """The trainer phase, then the server phase on its checkpoint, then the
     graft, reproduce, feed, multi_device and tp_cp phases on its corpus, in
-    one scratch directory under ``build/`` that is removed afterwards.
-    Returns the trainer, server, graft and reproduce phases' launches and the
-    multi_device and tp_cp phases' results."""
+    one scratch directory under ``build/`` that is removed afterwards, with
+    phases 20-22 in a child process beside the last two.  Returns the
+    trainer, server, graft and reproduce phases' launches, the multi_device
+    and tp_cp phases' results and the experiment phases' launches."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3872,6 +4234,7 @@ def run_trainer_and_server(smi: str):
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="trainer_smoke_", dir=build))
+    experiments = None
     try:
         trainer = timed(phase_trainer, smi, tmp)
         server = timed(phase_server, smi, tmp)
@@ -3879,11 +4242,17 @@ def run_trainer_and_server(smi: str):
         reproduce = timed(phase_reproduce, smi, tmp)
         timed(phase_feed, smi, tmp)
         torch.cuda.empty_cache()
+        experiments = start_experiments(smi, tmp)
         *multi, (one, one_dir), (one16, one16_dir) = timed(phase_multi_device, smi, tmp)
         torch.cuda.empty_cache()
         tp_cp = timed(phase_tp_cp, smi, tmp, one, one_dir, one16, one16_dir)
-        return trainer, server, graft, reproduce, multi, tp_cp
+        run, experiments = experiments, None
+        return (trainer, server, graft, reproduce, multi, tp_cp,
+                finish_experiments(run))
     finally:
+        if experiments is not None and experiments[0].poll() is None:
+            experiments[0].kill()
+            experiments[0].wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -3956,8 +4325,10 @@ def main() -> int:
     timed(phase_train_card_vs_cpu)
     profile_launches = timed(phase_profile_train, smi)
     torch.cuda.empty_cache()
+    ablation_serving, ablation_training = timed(phase_ablations, smi)
+    torch.cuda.empty_cache()
     (trainer_launches, server_launches, graft_launches, reproduce_launches, multi,
-     tp_cp) = run_trainer_and_server(smi)
+     tp_cp, (proof_launches, curve_launches, sweep_launches)) = run_trainer_and_server(smi)
     mapping_checks, dp_launches, dp_bf16_launches, serving_dp_launches = multi
     tp_launches, tp_bf16_launches, cp_launches = tp_cp
     features_launches = timed(phase_features, smi)
@@ -3979,7 +4350,12 @@ def main() -> int:
                                     "tensor_parallel_bf16": tp_bf16_launches,
                                     "context_parallel": cp_launches,
                                     "wake": wake_launches,
-                                    "uplink": uplink_launches}, mapping_checks)))
+                                    "uplink": uplink_launches,
+                                    "ablation_serving": ablation_serving,
+                                    "ablation_training": ablation_training,
+                                    "train_proof": proof_launches,
+                                    "accum_curve": curve_launches,
+                                    "ablation_sweep": sweep_launches}, mapping_checks)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

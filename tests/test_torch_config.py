@@ -87,11 +87,15 @@ def test_port_imports_nothing_of_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
         "import imagined_speech_translation_tpu_torch as port\n"
-        "for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "importlib.import_module('chip_smoke')\n"
+        "experiments = {port.__name__ + '.cli.' + m for m in\n"
+        "               ('train_proof', 'ablation_sweep', 'accum_curve_check')}\n"
+        "assert experiments <= set(names), experiments - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'optax', 'imagined_speech_translation_tpu')]\n"
+        "       ('jax', 'flax', 'optax', 'imagined_speech_translation_tpu', 'tools')]\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
