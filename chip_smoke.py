@@ -195,6 +195,14 @@ Phases, each failing loudly (non-zero exit, no final line):
    accumulation 2 with exactly 5 + 5 flash launches a micro-step (or 0),
    the weights still at step 0 and moved at step 1; s a batch, s a step,
    peak memory;
+19b. profilers: the five segment profilers' programs (``cli.train_profile``,
+   ``cli.train_bench``, ``cli.encoder_profile``, ``cli.beam_profile``,
+   ``cli.decode_profile``) at full width through their ``run`` functions,
+   cut in depth (2 timed runs a program, accumulation 2): every timed,
+   device-time, launch, rate and memory number finite and > 0, each
+   program's kernel launches as its configuration gives them (0 flash for
+   the cnn-only stem), ``fwd_only``'s loss components within 1e-2 of the
+   window's;
 20-22 run in a child process beside phases 16-17 (the experiment CLIs are
    bound by their host work; 16-17's times are correctness runs'):
 20. train_proof: ``cli.train_proof`` at its widths (4 epochs, then
@@ -218,7 +226,8 @@ context-parallel encoder (both ranks; the ring launches no kernel), the
 reproduce path (the local chain's convert and parity), the wake path
 (``cli.wake_train``, which launches none), the bf16 data- and
 tensor-parallel training paths, the uplink path, the ablation variants'
-serving batches and training steps, and the three experiment CLIs (and, for the
+serving batches and training steps, the three experiment CLIs and the five
+segment profilers' whole runs (and, for the
 flash forward and the fused backward, the variants their checks ran and
 the multi_device phase's mapping checks), and the one before that the
 card's name and power limit.
@@ -1747,7 +1756,7 @@ def phase_profile_train(smi: str):
         raise AssertionError("profile train: neither B=8 nor B=4 fits in float32")
     launches = _kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    runs = iters + 1  # the warm-up and the traced iterations
+    runs = res["runs"]  # the warm-up and the traced iterations (of every trace taken)
     per_iter = {k: n / runs for k, n in launches.items()}
     finite = all(bool(torch.isfinite(g).all()) for g in res["out"])
     norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in res["out"]]))
@@ -1775,9 +1784,9 @@ def phase_profile_train(smi: str):
     log(f"[profile-train] --tiny on the card: {tiny['seconds'][0]:.3f} s, gradients over "
         f"{len(tiny['out'])} tensors {'finite' if tiny_finite else 'NOT FINITE'}, launches "
         f"{tiny_launches}")
-    if not tiny_finite or any(tiny_launches[k] != 2 * n for k, n in want.items()):
+    if not tiny_finite or any(tiny_launches[k] != tiny["runs"] * n for k, n in want.items()):
         raise AssertionError(f"profile train --tiny: finite {tiny_finite}, launched "
-                             f"{tiny_launches} in 2 runs, want {want} per run")
+                             f"{tiny_launches} in {tiny['runs']} runs, want {want} per run")
     return launches
 
 
@@ -3089,6 +3098,163 @@ def phase_ablations(smi: str):
     return serving, training
 
 
+def _positive_numbers(tag: str, record, where: str = "") -> int:
+    """Every number of ``record`` (nested dicts) finite and > 0; returns how
+    many were checked."""
+    import math
+
+    if isinstance(record, dict):
+        return sum(_positive_numbers(tag, v, f"{where}.{k}") for k, v in record.items())
+    if isinstance(record, bool) or not isinstance(record, (int, float)):
+        raise AssertionError(f"[profilers] {tag}{where}: {record!r} is not a number")
+    if not (math.isfinite(record) and record > 0):
+        raise AssertionError(f"[profilers] {tag}{where}: {record!r} is not finite and > 0")
+    return 1
+
+
+def _finite(tag: str, record: dict) -> None:
+    import math
+
+    bad = {k: v for k, v in record.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"[profilers] {tag}: non-finite {bad}")
+
+
+def phase_profilers(smi: str):
+    """19b. The segment profilers' programs at full width on the card, through
+    the ``run`` functions their CLIs call, at cut depth: 2 timed runs a
+    program (cut from 5 or 8), training at micro-batch 4 x accumulation 2
+    (cut from 8), widths and batches as the CLIs' defaults.
+    ``cli.train_profile`` (bf16; every segment starting from the same
+    state), ``cli.train_bench`` (fp32 and bf16), ``cli.encoder_profile``
+    (B = 16, T = 1651, BN folded, bf16; five encoders, each freed before the
+    next), ``cli.beam_profile`` and ``cli.decode_profile`` (B = 16, beam 3,
+    bf16).  Checks: every timed, device-time, launch, rate and memory number
+    of each report finite and > 0 (the derived rows, differences that may
+    take either sign, finite); each program's launches of the port's kernels
+    in its profiled run equal to the counts its configuration gives (flash
+    forward ``2 * num_attn_layers - 1`` an encoder forward and 0 for the
+    cnn-only stem, one fused backward per flash forward in a backward, one
+    IIR a frontend); ``fwd_only``'s loss components within 1e-2 relative of
+    the window's metrics.  Returns each CLI's launches (its whole run)."""
+    import torch
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import (
+        beam_profile,
+        decode_profile,
+        encoder_profile,
+        train_bench,
+        train_profile,
+    )
+    from imagined_speech_translation_tpu_torch.config import default_config
+
+    iters, micro, accum = 2, 4, 2
+    dev = torch.device(DEVICE)
+    cfg = default_config()
+    flash = encoder_profile.flash_launches(cfg.model.brain_encoder)
+    paths, seconds = {}, {}
+
+    def drive(name, fn):
+        torch.cuda.empty_cache()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = fn()
+        seconds[name] = time.perf_counter() - t0
+        paths[name] = _kernels.launch_counts()
+        return report
+
+    def programs_launch(tag, report, want):
+        for prog, counts in want.items():
+            exact_launches(f"profilers {tag} {prog}", report["kernel_launches"][prog], counts)
+
+    # train_profile: bf16, every segment from the same state
+    tcfg = train_profile.profile_config(micro, accum, cfg)
+    progs = train_profile.build_programs(tcfg, dev)
+    tp = drive("train_profile", lambda: train_profile.run(tcfg, dev, iters=iters, smi=smi,
+                                                          progs=progs))
+    both = {"flash_fwd": flash * accum, "flash_bwd": flash * accum}
+    one = {"flash_fwd": flash, "flash_bwd": flash}
+    programs_launch("train_profile", tp, {
+        "window": both, "grads_only": both, "fwd_only": {"flash_fwd": flash * accum},
+        "micro_grad": one, "ce_only": both, "cast": {}, "optimizer": {}})
+    n = sum(_positive_numbers("train_profile", tp[k]) for k in
+            ("segments_ms", "windows_per_sec", "device_ms", "launches", "peak_memory_gib"))
+    _finite("train_profile derived_ms", tp["derived_ms"])
+    _finite("train_profile derived_device_ms", tp["derived_device_ms"])
+    _, comps = progs.run("fwd_only")
+    metrics = progs.run("window")
+    rel = {k: abs(float(v) - float(metrics[k])) / abs(float(metrics[k])) for k, v in comps.items()}
+    if not max(rel.values()) <= 1e-2:
+        raise AssertionError(f"[profilers] fwd_only components {rel} relative to the window's "
+                             "(bound 1e-2)")
+    del progs
+    log(f"[profilers] train_profile (4 x {accum}, bf16, {iters} timed runs): segments ms "
+        f"{ {k: round(v, 3) for k, v in tp['segments_ms'].items()} }, device ms "
+        f"{ {k: round(v, 3) for k, v in tp['device_ms'].items()} }, launches {tp['launches']}, "
+        f"{tp['windows_per_sec']:.2f} windows/s, peak {tp['peak_memory_gib']:.2f} GiB; "
+        f"{n} numbers finite and > 0; fwd_only's components within {max(rel.values()):.2e} "
+        f"of the window's (bound 1e-2)")
+
+    # train_bench: fp32 and bf16
+    tb = drive("train_bench", lambda: {
+        mode: train_bench.bench_mode(train_bench.mode_config(mode, micro, accum, cfg=cfg), dev,
+                                     iters) for mode in ("fp32", "bf16")})
+    for mode, row in tb.items():
+        exact_launches(f"profilers train_bench {mode}", row["kernel_launches"], both)
+        n = _positive_numbers(f"train_bench {mode}", {k: v for k, v in row.items()
+                                                      if k != "kernel_launches"})
+        log(f"[profilers] train_bench [{mode}] (4 x {accum}, {iters} steps): window "
+            f"{row['window_ms']:.3f} ms, {row['samples_per_sec']:.2f} samples/s, first step "
+            f"{row['compile_s']:.2f} s, loss {row['loss']:.4f}, device {row['device_ms']:.3f} ms, "
+            f"{row['launches']} launches, peak {row['peak_memory_gib']:.2f} GiB; {n} numbers "
+            "finite and > 0")
+
+    # encoder_profile: five encoders at B = 16, T = 1651
+    ep = drive("encoder_profile", lambda: encoder_profile.run(cfg, dev, batch=16, iters=iters,
+                                                              smi=smi))
+    configs = encoder_profile.program_configs(cfg.model.brain_encoder)
+    programs_launch("encoder_profile", ep, {
+        prog: {"flash_fwd": encoder_profile.flash_launches(c)} for prog, c in configs.items()})
+    if ep["kernel_launches"]["stem"]["flash_fwd"] != 0:
+        raise AssertionError("[profilers] the stem launched the flash forward")
+    n = _positive_numbers("encoder_profile", {k: v for k, v in ep.items() if k not in (
+        "derived", "kernel_launches", "card", "platform")})
+    _finite("encoder_profile derived", ep["derived"])
+    log(f"[profilers] encoder_profile (B 16, T 1651, bf16, BN folded, {iters} timed runs): "
+        + ", ".join(f"{p} {ep[p + '_ms']:.3f} ms (device {ep['device_ms'][p]:.3f}, "
+                    f"{ep['launches'][p]} launches, flash {ep['kernel_launches'][p]['flash_fwd']}, "
+                    f"peak {ep['peak_memory_gib'][p]:.2f} GiB)" for p in encoder_profile.PROGRAMS)
+        + f"; {ep['effective_tflops']:.1f} TFLOP/s ({ep['peak_share']:.3f} of 989); {n} numbers "
+        "finite and > 0")
+
+    # beam_profile: 16 iterations a program, B = 16, beam 3
+    bp = drive("beam_profile", lambda: beam_profile.run(cfg, dev, iters=iters, smi=smi))
+    programs_launch("beam_profile", bp, dict.fromkeys(beam_profile.PROGRAMS, {}))
+    n = _positive_numbers("beam_profile", {k: v for k, v in bp.items() if k not in (
+        "kernel_launches", "card")})
+    log(f"[profilers] beam_profile (B 16, beam 3, V {cfg.model.bart.vocab_size}, bf16, {iters} "
+        "timed runs): " + ", ".join(
+            f"{p} {bp[p + '_ms']:.3f} ms (device {bp['device_ms'][p]:.3f}, "
+            f"{bp['launches'][p]} launches)" for p in beam_profile.PROGRAMS)
+        + f"; {n} numbers finite and > 0")
+
+    # decode_profile: frontend, encoder, beam, full
+    dp = drive("decode_profile", lambda: decode_profile.run(cfg, dev, iters=iters, smi=smi))
+    programs_launch("decode_profile", dp, {
+        "frontend": {"sosfilt": 1}, "encoder": {"flash_fwd": flash}, "beam": {},
+        "full": {"sosfilt": 1, "flash_fwd": flash}})
+    n = _positive_numbers("decode_profile", {k: v for k, v in dp.items() if k not in (
+        "kernel_launches", "card", "config_heads")})
+    log(f"[profilers] decode_profile (B 16, bf16, {iters} timed runs): " + ", ".join(
+        f"{p} {dp[p + '_ms']:.3f} ms (device {dp['device_ms'][p]:.3f}, "
+        f"{dp['launches'][p]} launches)" for p in decode_profile.SEGMENTS)
+        + f", {dp['windows_per_sec']:.2f} windows/s; {n} numbers finite and > 0")
+    log(f"[profilers] seconds {({k: round(v, 1) for k, v in seconds.items()})}, launches {paths} "
+        f"on {smi}")
+    return paths
+
+
 def run_experiments(smi: str):
     """20-22. The experiment CLIs through their entry points, each into a
     scratch directory under ``build/`` (removed afterwards), with their
@@ -4327,6 +4493,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ablation_serving, ablation_training = timed(phase_ablations, smi)
     torch.cuda.empty_cache()
+    profilers = timed(phase_profilers, smi)
+    torch.cuda.empty_cache()
     (trainer_launches, server_launches, graft_launches, reproduce_launches, multi,
      tp_cp, (proof_launches, curve_launches, sweep_launches)) = run_trainer_and_server(smi)
     mapping_checks, dp_launches, dp_bf16_launches, serving_dp_launches = multi
@@ -4355,7 +4523,8 @@ def main() -> int:
                                     "ablation_training": ablation_training,
                                     "train_proof": proof_launches,
                                     "accum_curve": curve_launches,
-                                    "ablation_sweep": sweep_launches}, mapping_checks)))
+                                    "ablation_sweep": sweep_launches, **profilers},
+                               mapping_checks)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -19,9 +19,10 @@ parameters only, so every flash attention's backward runs at dropout rate 0
 
 One untraced run first (it builds the kernels), then ``--iters`` runs, each
 annotated ``<what>_<i>`` and timed on the host clock around synchronized
-calls, under ``utils.profiling.trace``, which writes ``<out>/trace.json``.  On
-the card the device time by kernel name follows (``cli.profile_slice.
-device_summary``).  The default device is the card; ``--device cpu`` runs the
+calls, under ``utils.profiling.trace`` (through ``cli.profile_slice.
+traced_run``, which takes the iterations again if the card's trace lost
+device records), which writes ``<out>/trace.json``.  On the card the device
+time by kernel name follows (``cli.profile_slice.device_summary``).  The default device is the card; ``--device cpu`` runs the
 plain twins of the kernels.  ``--tiny`` has head dims 12 and 24: the flash
 kernels take 12 on their CUDA-core variants and 24, a multiple of 8, on the
 float32 tensor-core (3xTF32) ones.
@@ -42,8 +43,8 @@ from ..decode import DecodeParams, build_generate_fn
 from ..models import build_model
 from ..models.bart import cross_entropy_loss
 from ..utils.cache import enable_persistent_cache
-from ..utils.profiling import annotate, trace
-from .profile_slice import device_summary
+from ..utils.profiling import annotate
+from .profile_slice import device_summary, traced_run
 
 logger = logging.getLogger(__name__)
 
@@ -114,7 +115,9 @@ def build_program(what: str, model, cfg, inputs):
 
 def main(argv=None) -> dict:
     """Runs the script; returns the trace's path, the traced iterations'
-    seconds and the last iteration's output."""
+    seconds, the last iteration's output and how many times the program ran
+    (the warm-up, and every traced iteration, those of a refused trace
+    too)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", required=True, help="directory of the Chrome trace")
     ap.add_argument("--what", choices=("encode", "generate", "train"), default="encode")
@@ -138,14 +141,20 @@ def main(argv=None) -> dict:
     run()
     sync()
     logger.info("tracing %d iterations to %s", args.iters, args.out)
-    seconds, out = [], None
-    with trace(args.out) as path:
+    seconds, out, runs = [], None, 1
+
+    def iterations():
+        nonlocal out, runs
+        runs += args.iters
+        seconds.clear()
         for i in range(args.iters):
             t0 = time.perf_counter()
             with annotate(f"{args.what}_{i}"):
                 out = run()
             sync()
             seconds.append(time.perf_counter() - t0)
+
+    path = traced_run(iterations, args.out)
     logger.info("trace written to %s; seconds per iteration under the profiler: %s", path,
                 [round(s, 4) for s in seconds])
     if device.type == "cuda":
@@ -154,7 +163,7 @@ def main(argv=None) -> dict:
                     s["busy_ms"], s["span_ms"], s["idle_share"], s["launches"])
         for name, ms, count in s["by_name"][:12]:
             logger.info("  %9.3f ms  n=%5d  %s", ms, count, name[:90])
-    return dict(trace=path, seconds=seconds, out=out)
+    return dict(trace=path, seconds=seconds, out=out, runs=runs)
 
 
 if __name__ == "__main__":

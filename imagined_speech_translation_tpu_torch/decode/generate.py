@@ -1,7 +1,8 @@
 """EEG -> tokens: bind an ``EEGDecodingModel`` (or a bare
 ``BartDecoderModel``) and decode params into one function.  Port of
 ``imagined_speech_translation_tpu.decode.generate`` (``build_generate_fn``,
-``build_bart_generate_fn``)."""
+``build_bart_generate_fn``), with the search after the encoder as a
+function of its own (``build_search_fn``)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,21 @@ from .search import DecodeParams, beam_search, greedy_search
 
 
 def build_generate_fn(model, dparams: DecodeParams):
-    """Returns ``generate(eeg, channel_mask) -> (B, max_length)`` token ids.
+    """Returns ``generate(eeg, channel_mask) -> (B, max_length)`` token ids:
+    ``model.encode``, then :func:`build_search_fn`'s search."""
+    search = build_search_fn(model, dparams)
+
+    @torch.inference_mode()
+    def generate(eeg, channel_mask=None):
+        _, enc = model.encode(eeg, channel_mask)
+        return search(enc)
+
+    return generate
+
+
+def build_search_fn(model, dparams: DecodeParams):
+    """Returns ``search(enc) -> (B, max_length)`` token ids from the
+    ``(B, S, d)`` pseudo-encoder states of an ``EEGDecodingModel``.
 
     Beam search when ``dparams.num_beams > 1``, greedy otherwise.  The
     cross-attention over the tiled pseudo-encoder is hoisted out of the
@@ -19,9 +34,7 @@ def build_generate_fn(model, dparams: DecodeParams):
     K = dparams.num_beams
 
     @torch.inference_mode()
-    def generate(eeg, channel_mask=None):
-        b = eeg.shape[0]
-        _, enc = model.encode(eeg, channel_mask)
+    def search(enc):
         enc_x = enc.repeat_interleave(K, dim=0) if K > 1 else enc
         caches = model.init_cache(enc_x.shape[0], dparams.max_length, enc.dtype, enc.device)
         consts = model.cross_consts(enc_x)
@@ -29,10 +42,10 @@ def build_generate_fn(model, dparams: DecodeParams):
         def step(tokens, positions, caches):
             return model.decode_step_const(tokens, positions, consts, caches)
 
-        search = beam_search if K > 1 else greedy_search
-        return search(step, caches, b, dparams, device=eeg.device)
+        run = beam_search if K > 1 else greedy_search
+        return run(step, caches, enc.shape[0], dparams, device=enc.device)
 
-    return generate
+    return search
 
 
 def build_bart_generate_fn(model, dparams: DecodeParams):

@@ -365,9 +365,11 @@ class RegionConvAttentionEncoder(nn.Module):
             self.temporal_tokens = _param(R, 1, nt, h)
             if cfg.use_positional_embedding:
                 self.pos_emb = _param(R, 1, stem_length(cfg, n_timepoints) + 1 + nt, h)
-            self.cross_scale_attn = MultiHeadAttention(
-                h, cfg.attn_heads[0] // 2, R, cfg.seq_shards, dropout=0.1, seq_axis=cfg.seq_axis
-            )
+            if cfg.num_attn_layers > 1:  # it follows every layer but the first
+                self.cross_scale_attn = MultiHeadAttention(
+                    h, cfg.attn_heads[0] // 2, R, cfg.seq_shards, dropout=0.1,
+                    seq_axis=cfg.seq_axis,
+                )
             for i in range(cfg.num_attn_layers):
                 self.add_module(f"attn{i}_norm", RegionLayerNorm(R, h))
                 self.add_module(

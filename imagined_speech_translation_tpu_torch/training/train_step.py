@@ -113,46 +113,66 @@ def _total(comps: dict, weights: dict):
                for k, v in comps.items())
 
 
+def forward_copy(params: dict, mixed: bool) -> dict:
+    """The window's forward copy of ``params`` (bfloat16 under mixed
+    precision, else the parameters' own dtype), detached leaves that
+    gradients are taken against, shared by all micro-steps."""
+    return {n: p.detach().to(torch.bfloat16 if mixed else p.dtype).requires_grad_()
+            for n, p in params.items()}
+
+
 def make_train_step(module: TrainModule, optimizer: FusedAdamW, cfg: Config,
                     bow_indices, *, data_parallel: dpx.DataParallel | None = None) -> Callable:
     """Returns ``train_step(state, batch, generator) -> (state, metrics)``;
     ``generator`` is a CPU ``torch.Generator`` (the step's dropout key,
     the same on every rank).  The state's parameters and optimizer state
-    update in place."""
+    update in place.
+
+    The step is its two halves, kept as attributes of the returned function
+    so that a profiler times the very code the step runs:
+    ``train_step.accumulate(state, batch, generator, backward=True) ->
+    (grads, components)`` and ``train_step.update(state, grads, components)
+    -> metrics``."""
     loss_fn = make_loss_fn(module, cfg, bow_indices)
     accum = cfg.training.grad_accum_steps
     mixed = cfg.training.mixed_precision
     accum_dtype = getattr(torch, cfg.training.grad_accum_dtype) if mixed else torch.float32
     names = (_COMPONENTS if cfg.training.loss.composite else ("loss_ce",))
 
-    def train_step(state: TrainState, batch: dict, generator: torch.Generator):
-        params = dict(state.module.named_parameters())
-        # one forward copy per window (bf16 under mixed precision), shared by
-        # all micro-steps; its leaves are what gradients are taken against
-        fwd = {n: p.detach().to(torch.bfloat16 if mixed else p.dtype).requires_grad_()
-               for n, p in params.items()}
+    def accumulate(state: TrainState, batch: dict, generator: torch.Generator, *,
+                   backward: bool = True):
+        """The window's gradients, float32 by parameter name, averaged over
+        the micro-steps and summed over the ranks, and its loss components
+        averaged likewise.  BatchNorm's running statistics update in place.
+        With ``backward=False`` the micro-steps run their losses under
+        ``torch.no_grad`` (still in train mode, on the same dropout streams)
+        and the gradients are ``None``; the components are this rank's."""
+        fwd = forward_copy(dict(state.module.named_parameters()), mixed)
         leaves = list(fwd.values())
-        grads_acc = [torch.zeros_like(p, dtype=accum_dtype) for p in leaves]
+        grads_acc = [torch.zeros_like(p, dtype=accum_dtype) for p in leaves] if backward else []
         comps_acc = {k: 0.0 for k in names}
         base_seed = int(torch.randint(0, 2**62, (), generator=generator))
         for i in range(accum):
             micro = {k: v[i] for k, v in batch.items() if k != "channel_mask"}
             micro["channel_mask"] = batch["channel_mask"]
             with dpx.installed(data_parallel, micro["eeg"].shape[0]), \
-                    tpx.installed(state.tensor_parallel):
+                    tpx.installed(state.tensor_parallel), torch.set_grad_enabled(backward):
                 total, comps = loss_fn(fwd, micro, _micro_generator(base_seed, i),
                                        state.loss_weights)
-                # parameters a configuration leaves unused (the loss heads
-                # without the composite loss, the attention of the cnn-only
-                # ablation) get zero gradients, as jax.grad gives them
-                grads = torch.autograd.grad(total, leaves, allow_unused=True,
-                                            materialize_grads=True)
-            for acc, g in zip(grads_acc, grads):
-                acc.add_(g.to(acc.dtype))
+                if backward:
+                    # parameters a configuration leaves unused (the loss heads
+                    # without the composite loss, the attention of the
+                    # cnn-only ablation) get zero gradients, as jax.grad gives
+                    grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                                materialize_grads=True)
+                    for acc, g in zip(grads_acc, grads):
+                        acc.add_(g.to(acc.dtype))
             for k in names:
                 comps_acc[k] = comps_acc[k] + comps[k].detach()
-        grads = {n: (acc / accum).float() for n, acc in zip(fwd, grads_acc)}
         comps = {k: v / accum for k, v in comps_acc.items()}
+        if not backward:
+            return None, comps
+        grads = {n: (acc / accum).float() for n, acc in zip(fwd, grads_acc)}
         tp = state.tensor_parallel
         if tp is not None or data_parallel is not None:
             if grads_acc and grads_acc[0].is_cuda:
@@ -172,12 +192,23 @@ def make_train_step(module: TrainModule, optimizer: FusedAdamW, cfg: Config,
                 dpx.all_reduce_buckets([summed], data_parallel.group)
                 comps = dict(zip(names, summed.unbind()))
             train_step.allreduce_seconds += time.perf_counter() - t0
+        return grads, comps
+
+    def update(state: TrainState, grads: dict, comps: dict) -> dict:
+        """The clipped AdamW step on the window's ``grads``, in place on the
+        parameters and the optimizer state; the step's metrics."""
+        params = dict(state.module.named_parameters())
         grad_norm = optimizer.update(params, grads, state.opt_state,
                                      tensor_parallel=state.tensor_parallel)
         state.step += 1
-        metrics = dict(comps, loss=_total(comps, state.loss_weights), grad_norm=grad_norm)
-        return state, metrics
+        return dict(comps, loss=_total(comps, state.loss_weights), grad_norm=grad_norm)
 
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator):
+        grads, comps = accumulate(state, batch, generator)
+        return state, update(state, grads, comps)
+
+    train_step.accumulate = accumulate
+    train_step.update = update
     train_step.allreduce_seconds = 0.0
     return train_step
 

@@ -92,7 +92,9 @@ def test_port_imports_nothing_of_the_jax_package():
         "    importlib.import_module(name)\n"
         "importlib.import_module('chip_smoke')\n"
         "experiments = {port.__name__ + '.cli.' + m for m in\n"
-        "               ('train_proof', 'ablation_sweep', 'accum_curve_check')}\n"
+        "               ('train_proof', 'ablation_sweep', 'accum_curve_check',\n"
+        "                'train_profile', 'train_bench', 'encoder_profile', 'beam_profile',\n"
+        "                'decode_profile')}\n"
         "assert experiments <= set(names), experiments - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'optax', 'imagined_speech_translation_tpu', 'tools')]\n"

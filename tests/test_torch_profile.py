@@ -1,7 +1,10 @@
-"""The profile script's trace arithmetic, its synthetic serving inputs
-(the vocab and montage that ``chip_smoke.py`` also decodes with) and its
-serving dtype flag."""
+"""The profile script's trace arithmetic, the check that a card's trace
+is whole and the retry of a refused one, its synthetic serving inputs (the
+vocab and montage that ``chip_smoke.py`` also decodes with) and its serving
+dtype flag."""
 
+import contextlib
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -17,6 +20,7 @@ from imagined_speech_translation_tpu_torch.cli.profile_slice import (
 )
 from imagined_speech_translation_tpu_torch.data import ChineseCharTokenizer, RegionSpec
 from imagined_speech_translation_tpu_torch.data.regions import ELECTRODE_REGIONS
+from imagined_speech_translation_tpu_torch.utils import profiling
 from tests.test_torch_models import few_threads  # noqa: F401
 
 
@@ -46,6 +50,83 @@ def test_device_summary_merges_overlapping_device_intervals():
 def test_device_summary_refuses_a_trace_without_device_activity():
     with pytest.raises(RuntimeError, match="no device activity"):
         device_summary([_ev("cpu_op", "aten::mm", 0.0, 10.0)])
+
+
+def _launch(name, ts, corr, cat="cuda_runtime"):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": 5.0,
+            "args": {"correlation": corr}}
+
+
+def _kernel(name, ts, corr):
+    return dict(_ev("kernel", name, ts, 10.0), args={"correlation": corr})
+
+
+def _card_trace(*, sentinels=2, lose=()):
+    """A card's trace as ``utils.profiling.trace`` takes it: two sentinel
+    launches, the last ``sentinels`` of them recorded (records are lost at
+    the head), the block's annotation, two runtime launches and one driver
+    launch, each kernel recorded unless its correlation id is in ``lose``."""
+    events = [{"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "python"}}]
+    for i in range(2):
+        events.append(_launch("cudaLaunchKernel", 1.0 + i, 900 + i))
+        if i >= 2 - sentinels:
+            events.append(_kernel(profiling.SENTINEL + "(long)", 3.0 + i, 900 + i))
+    events.append(_ev("user_annotation", profiling.BLOCK, 50.0, 100.0))
+    for corr, (cat, name) in enumerate([("cuda_runtime", "cudaLaunchKernel"),
+                                        ("cuda_runtime", "cudaLaunchKernelExC"),
+                                        ("cuda_driver", "cuLaunchKernelEx")]):
+        events.append(_launch(name, 60.0 + 10 * corr, corr, cat))
+        if corr not in lose:
+            events.append(_kernel(f"k{corr}", 65.0 + 10 * corr, corr))
+    events.append(_ev("cuda_runtime", "cudaDeviceSynchronize", 140.0, 5.0))
+    return events
+
+
+@pytest.mark.parametrize("sentinels", [2, 1])
+def test_check_whole_takes_a_whole_trace(sentinels):
+    """A trace whose block is whole passes, also where the head lost the
+    first sentinel's record; the file keeps the block's events."""
+    events = _card_trace(sentinels=sentinels)
+    profiling.check_whole(events)
+    kept = profiling.block_events(events)
+    assert [e["name"] for e in kept] == [
+        "process_name", profiling.BLOCK, "cudaLaunchKernel", "k0", "cudaLaunchKernelExC", "k1",
+        "cuLaunchKernelEx", "k2", "cudaDeviceSynchronize"]
+    assert device_summary(kept)["launches"] == 3
+
+
+@pytest.mark.parametrize("case, match", [
+    ({"sentinels": 0}, "lacks all 256 sentinels"),
+    ({"lose": (1,)}, "1 of the block's 3 kernel launches have no device record"),
+    ({"sentinels": 1, "lose": (0, 2)}, "2 of the block's 3 kernel launches"),
+])
+def test_check_whole_refuses_a_trace_that_lost_records(case, match):
+    with pytest.raises(profiling.IncompleteTrace, match=match):
+        profiling.check_whole(_card_trace(**case))
+
+
+@pytest.mark.parametrize("refusals", [0, 1, 2, 3])
+def test_traced_run_takes_a_refused_trace_again(monkeypatch, tmp_path, refusals):
+    """A refused trace is taken again, up to three runs, ``after()`` runs
+    after each, and the third refusal raises."""
+    runs, afters, left = [], [], [refusals]
+
+    @contextlib.contextmanager
+    def trace(log_dir):
+        yield Path(log_dir) / "trace.json"
+        if left[0]:
+            left[0] -= 1
+            raise profiling.IncompleteTrace("lost")
+
+    monkeypatch.setattr(profile_slice, "trace", trace)
+    run = lambda: profile_slice.traced_run(lambda: runs.append(1), tmp_path,  # noqa: E731
+                                           after=lambda: afters.append(1))
+    if refusals == 3:
+        with pytest.raises(profiling.IncompleteTrace):
+            run()
+    else:
+        assert run() == tmp_path / "trace.json"
+    assert len(runs) == len(afters) == min(refusals + 1, 3)
 
 
 def test_synthetic_inputs_fit_the_full_width_config():
