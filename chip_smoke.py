@@ -198,13 +198,15 @@ Phases, each failing loudly (non-zero exit, no final line):
 19b. profilers: the five segment profilers' programs (``cli.train_profile``,
    ``cli.train_bench``, ``cli.encoder_profile``, ``cli.beam_profile``,
    ``cli.decode_profile``) at full width through their ``run`` functions,
-   cut in depth (2 timed runs a program, accumulation 2): every timed,
+   cut in depth (1 timed run a program, accumulation 2): every timed,
    device-time, launch, rate and memory number finite and > 0, each
    program's kernel launches as its configuration gives them (0 flash for
    the cnn-only stem), ``fwd_only``'s loss components within 1e-2 of the
    window's;
-20-22 run in a child process beside phases 16-17 (the experiment CLIs are
-   bound by their host work; 16-17's times are correctness runs'):
+23, 25-26 and 20-22 run in two child processes beside phases 16-17 (the
+   experiment CLIs are bound by their host work; 16-17's times are
+   correctness runs', and the soak's pass flags compare the run with
+   itself):
 20. train_proof: ``cli.train_proof`` at its widths (4 epochs, then
    ``--resume`` to 14, cut from 20): its criteria bind (loss falls, val
    BLEU-4 above 0, BLEU-1 rises, weights move, tables logged, the resume
@@ -213,7 +215,28 @@ Phases, each failing loudly (non-zero exit, no final line):
    windows, cut from 40): the bf16 carry and first moment within 2% of the
    float32 curve in every window, both curves falling, exact launches;
 22. ablation_sweep: ``cli.ablation_sweep --only full pure_cnn --epochs 1``
-   at the tool's widths: both rows and a generated verdict line.
+   at the tool's widths: both rows and a generated verdict line;
+23. soak (first in the first child): ``cli.streaming_soak`` at full size
+   (``default_config()``, BatchNorm folded, bf16, the float16 wire), pooled
+   (a ``BatchScheduler`` of 16), 6 sessions of half-window frames every
+   0.12 s (25 windows/s) through ``--transport inproc`` for 90 s: ``ok``,
+   no errors, utterances, ``rss_bounded`` (the RSS fit rising less than 32
+   MB over the second half; 32 MB/h is the recorded soak's verdict, below
+   what 90 s resolve), ``latency_stable``, 1 IIR + 5 flash forward launches
+   a decode batch;
+24. kernel_check (after the split kernels): ``cli.kernel_check`` in full:
+   every gate of the JAX tool within its unchanged bound, the probe's bits
+   equal to its twin's, the fused backward's out, dK, dV and mask bit-equal
+   over two launches with dQ within its atomics' bound; the JAX tool's
+   timing shapes;
+25-26 run after the soak in its child:
+25. multiproc_proof: ``cli.multiproc_proof``, one train step over four gloo
+   ranks on the card as ``{dcn: 2, data: 2, model: 1}`` against one
+   process: the loss within 1e-5, the checkpoint written once and restored
+   bit for bit on every rank;
+26. demos: ``examples.streaming_demo --source device`` and
+   ``examples.product_journey_demo`` on the card: utterances decoded, IIR
+   and flash forward launched.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernels' JSON summary, with each kernel's launches on the serving path, the
@@ -226,19 +249,21 @@ context-parallel encoder (both ranks; the ring launches no kernel), the
 reproduce path (the local chain's convert and parity), the wake path
 (``cli.wake_train``, which launches none), the bf16 data- and
 tensor-parallel training paths, the uplink path, the ablation variants'
-serving batches and training steps, the three experiment CLIs and the five
-segment profilers' whole runs (and, for the
+serving batches and training steps, the three experiment CLIs, the five
+segment profilers' whole runs, the soak, the kernel gate, the multi-process
+proof's five processes and the two demos that decode (and, for the
 flash forward and the fused backward, the variants their checks ran and
 the multi_device phase's mapping checks), and the one before that the
 card's name and power limit.
 ``dropout_mask`` is a check-only probe: the mask it writes is the
 ``__device__`` function every flash launch with dropout evaluates, so its
-own launch count is 0 on every path.  Imports nothing of JAX.
+own launch count is 0 on every path but the kernel gate's.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -604,18 +629,25 @@ def phase_kernels():
     return checks
 
 
+@functools.lru_cache(maxsize=None)
+def library_sass(path: str) -> str:
+    """``cuobjdump -sass`` of the kernel library at ``path`` (about 19 s on
+    the card's host: listed once for every check that reads it)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    return subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", path],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def sass_reductions(fragment: str,
                     opcodes: str = r"\b(?:RED|ATOM)G?\.[\w.]+") -> dict[str, dict[str, int]]:
     """Global reduction and atomic instructions (SASS opcode -> count), or
     those that ``opcodes`` matches, of each function of the loaded kernel
     library whose name contains ``fragment``, as ``cuobjdump -sass`` lists
     them."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
     from imagined_speech_translation_tpu_torch import _kernels
 
-    sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", _kernels.library()._name],
-                          capture_output=True, text=True, check=True).stdout
+    sass = library_sass(_kernels.library()._name)
     out, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -3122,7 +3154,7 @@ def _finite(tag: str, record: dict) -> None:
 
 def phase_profilers(smi: str):
     """19b. The segment profilers' programs at full width on the card, through
-    the ``run`` functions their CLIs call, at cut depth: 2 timed runs a
+    the ``run`` functions their CLIs call, at cut depth: 1 timed run a
     program (cut from 5 or 8), training at micro-batch 4 x accumulation 2
     (cut from 8), widths and batches as the CLIs' defaults.
     ``cli.train_profile`` (bf16; every segment starting from the same
@@ -3149,7 +3181,7 @@ def phase_profilers(smi: str):
     )
     from imagined_speech_translation_tpu_torch.config import default_config
 
-    iters, micro, accum = 2, 4, 2
+    iters, micro, accum = 1, 4, 2
     dev = torch.device(DEVICE)
     cfg = default_config()
     flash = encoder_profile.flash_launches(cfg.model.brain_encoder)
@@ -3255,13 +3287,21 @@ def phase_profilers(smi: str):
     return paths
 
 
-def run_experiments(smi: str):
-    """20-22. The experiment CLIs through their entry points, each into a
-    scratch directory under ``build/`` (removed afterwards), with their
-    launches: ``cli.train_proof`` (4 epochs, then 10 more),
-    ``cli.accum_curve_check`` at full width (24 windows) and
-    ``cli.ablation_sweep --only full pure_cnn --epochs 1`` at the sweep's
-    default widths."""
+# the two child processes beside the multi_device and tp_cp phases, each a
+# group of phases in turn
+EXPERIMENT_GROUPS = (("phase_soak", "phase_multiproc_proof", "phase_demos"),
+                     ("phase_train_proof", "phase_accum_curve", "phase_ablation_sweep"))
+
+
+def run_experiments(smi: str, names=sum(EXPERIMENT_GROUPS, ())):
+    """23, 20-22, 25-26. The phases ``names`` (by default all: the soak and
+    the experiment CLIs through their entry points), each into a scratch
+    directory under ``build/`` (removed afterwards); returns their launches
+    by path: ``soak`` (``cli.streaming_soak``, 90 s), ``multiproc_proof``
+    (four gloo ranks), the two demos that decode, ``train_proof`` (4
+    epochs, then 10 more), ``accum_curve`` (full width, 24 windows) and
+    ``ablation_sweep`` (``--only full pure_cnn --epochs 1`` at the sweep's
+    default widths)."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3269,43 +3309,48 @@ def run_experiments(smi: str):
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="experiments_smoke_", dir=build))
+    out = {}
     try:
-        return (timed(phase_train_proof, smi, tmp), timed(phase_accum_curve, smi, tmp),
-                timed(phase_ablation_sweep, smi, tmp))
+        for name in names:
+            launches = timed(globals()[name], smi, tmp)
+            out.update(launches if name == "phase_demos" else
+                       {name.removeprefix("phase_"): launches})
+        return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def experiments_child(out: str, smi: str) -> int:
-    """:func:`run_experiments` in a process of its own; writes the three
-    paths' launches, counted in this process, to ``out``."""
+def experiments_child(out: str, smi: str, *names) -> int:
+    """:func:`run_experiments` of ``names`` in a process of its own; writes
+    their paths' launches, counted in this process, to ``out``."""
     with open(out, "w") as f:
-        json.dump(run_experiments(smi), f)
+        json.dump(run_experiments(smi, names), f)
     return 0
 
 
-def start_experiments(smi: str, tmp):
-    """Starts phases 20-22 in a child process (:func:`experiments_child`),
-    its output to a log under ``tmp``.  The experiment CLIs are bound by
-    their host work, so ``main`` runs them beside the multi_device and
-    tp_cp phases, whose times are correctness runs' (two ranks share the
-    card), not beside a phase that times a kernel or a path."""
+def start_experiments(smi: str, tmp, names, tag: str):
+    """Starts the phases ``names`` in a child process
+    (:func:`experiments_child`), its output to a log under ``tmp``.  The
+    experiment CLIs are bound by their host work, so ``main`` runs them
+    beside the multi_device and tp_cp phases, whose times are correctness
+    runs' (two ranks share the card), not beside a phase that times a
+    kernel or a path; the soak's pass flags compare its run with itself."""
     import os
     from pathlib import Path
 
-    out, log_path = tmp / "experiments.json", tmp / "experiments.log"
+    out, log_path = tmp / f"experiments_{tag}.json", tmp / f"experiments_{tag}.log"
     code = "import chip_smoke, sys; sys.exit(chip_smoke.experiments_child(*sys.argv[1:]))"
     with open(log_path, "w") as f:
-        proc = subprocess.Popen([sys.executable, "-c", code, str(out), smi], stdout=f,
+        proc = subprocess.Popen([sys.executable, "-c", code, str(out), smi, *names], stdout=f,
                                 stderr=subprocess.STDOUT, env=dict(os.environ),
                                 cwd=str(Path(__file__).resolve().parent))
-    return proc, out, log_path, time.perf_counter()
+    return proc, out, log_path, time.perf_counter(), tag
 
 
 def finish_experiments(run, timeout_s: float = 900):
     """Waits for :func:`start_experiments`' child (killed at the deadline),
     logs its output and returns its launches; raises if it failed."""
-    proc, out, log_path, t0 = run
+    proc, out, log_path, t0, tag = run
     try:
         rc = proc.wait(timeout=max(timeout_s - (time.perf_counter() - t0), 1.0))
     finally:
@@ -3316,10 +3361,10 @@ def finish_experiments(run, timeout_s: float = 900):
         if line.startswith(("[", "===", "TRAIN PROOF", "ABLATION SWEEP", "Traceback")) or (
                 rc != 0 and not line.startswith("INFO")):
             log(line)
-    log(f"[time] experiments (a child process beside the multi_device and tp_cp phases) "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[time] experiments {tag} (a child process beside the multi_device and tp_cp "
+        f"phases) {time.perf_counter() - t0:.1f} s")
     if rc != 0:
-        raise AssertionError(f"the experiment phases exited {rc}")
+        raise AssertionError(f"the experiment phases {tag} exited {rc}")
     return json.loads(out.read_text())
 
 
@@ -3409,6 +3454,164 @@ def phase_ablation_sweep(smi: str, tmp):
         raise AssertionError(f"[ablation_sweep] the full model launched no flash kernel: "
                              f"{launches}")
     return launches
+
+
+# the soak phase: the card's serving soak at full size, cut to 90 s (the
+# recorded soak runs the CLI for 15 minutes and more)
+SOAK_MINUTES = 1.5
+SOAK_SESSIONS = 6
+SOAK_MAX_BATCH = 16
+# What a 90 s window can tell of the RSS: the fit over its second half rests
+# on 5 samples 10 s apart, which move by several MB from sample to sample, so
+# the tool's 32 MB/h (0.4 MB over 45 s) is below its noise; that verdict is
+# the recorded soak's.  Here the fitted rise over the second half must stay
+# under 32 MB: in the 15.5- and 16-minute soaks on an H100 (PERF.md section
+# 5) the largest fitted rise over 5 consecutive samples after the first 45 s
+# was 7.4 and 10.8 MB, while a host buffer kept per transfer would add half
+# the host-to-device megabytes (about 1300 MB) over that half.
+SOAK_HALF_RISE_MB = 32.0
+SOAK_RSS_BUDGET_MB_PER_H = SOAK_HALF_RISE_MB / (SOAK_MINUTES / 2 / 60)
+
+
+def phase_soak(smi: str, tmp):
+    """23. soak: ``cli.streaming_soak.soak`` at full size (``default_config()``,
+    random weights from seed 0, BatchNorm folded, bf16, the float16 wire),
+    pooled (one ``BatchScheduler`` of 16, 25 ms deadline), 6 sessions
+    streaming half-window frames every 0.12 s each (25 windows/s in all, an
+    utterance boundary every 8 windows, a ``speak`` command every 64
+    frames) through ``--transport inproc`` for 90 s: ``ok``, no errors,
+    utterances, ``rss_bounded`` (the RSS fit over the second half rising
+    less than :data:`SOAK_HALF_RISE_MB` across it, the tool's own budget
+    option set to that rise, 2560 MB/h; the tool's default of 32 MB/h is
+    the recorded soak's) and ``latency_stable`` (the second half's p95 within 3x the
+    first's); exactly 1 IIR and 5 flash forward launches a decode batch
+    (the warm-up's included).  Logs the pipeline p50 / p95, the
+    utterances' p50 / p95 by half, the RSS slope and the host-to-device
+    megabytes."""
+    import asyncio
+
+    import numpy as np
+
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import streaming_soak
+
+    _kernels.reset_launch_counts()
+    report = asyncio.run(streaming_soak.soak(
+        SOAK_MINUTES, tmp / "soak", 0, sessions=SOAK_SESSIONS, pooled=True, full_size=True,
+        max_batch=SOAK_MAX_BATCH, transfer_dtype=np.float16,
+        rss_budget_mb_per_h=SOAK_RSS_BUDGET_MB_PER_H, transport="inproc", device=DEVICE))
+    launches = _kernels.launch_counts()
+    pl = report["pipeline_latency"]
+    log(f"[soak] on {smi}: {report['duration_min']} min, {SOAK_SESSIONS} sessions, "
+        f"{report['frames_sent']} frames, {report['utterances']} utterances, "
+        f"{report['errors']} errors, {report['text_cmds']} commands; pipeline (window to "
+        f"text) p50 {pl['p50_ms']:.1f} ms, p95 {pl['p95_ms']:.1f} ms, {pl['batches']} batches, "
+        f"mean fill {pl['mean_fill']:.2f}; utterance after eeg_end p50 "
+        f"{report['latency_p50_first_half_ms']} / {report['latency_p50_second_half_ms']} ms, "
+        f"p95 {report['latency_p95_first_half_ms']:.1f} / "
+        f"{report['latency_p95_second_half_ms']:.1f} ms (first / second half); RSS "
+        f"{report['rss_start_mb']} -> {report['rss_end_mb']} MB, second-half slope "
+        f"{report['rss_slope_second_half_mb_per_h']} MB/h (budget "
+        f"{report['rss_budget_mb_per_h']}), h2d {report['h2d_total_mb']} MB, growth per h2d MB "
+        f"{report['rss_growth_per_h2d_mb']}; launches {launches}")
+    if not (report["ok"] and report["errors"] == 0 and report["utterances"] > 0
+            and report["rss_bounded"] and report["latency_stable"]):
+        raise AssertionError(f"[soak] failed: ok {report['ok']}, errors {report['errors']}, "
+                             f"utterances {report['utterances']}, rss_bounded "
+                             f"{report['rss_bounded']}, latency_stable "
+                             f"{report['latency_stable']}")
+    n = pl["batches"] + 1  # the factory's warm-up batch
+    exact_launches("soak", launches, {"sosfilt": n, "flash_fwd": 5 * n})
+    return launches
+
+
+def phase_kernel_check(smi: str, tmp):
+    """24. kernel_check: ``cli.kernel_check`` in full (24 seeds, timing) on
+    the card: every gate of the JAX tool within its unchanged bound, the
+    probe kernel's bits equal to its plain twin's, the fused backward's
+    out, dK, dV and mask bit-equal over two launches and its dQ within its
+    atomics' bound, the rate-1e-10 gradient through the fused kernel; the
+    forward, forward + backward at rate 0 and 0.1 timed at the JAX tool's
+    shapes (bf16 and f32).  The probe's first launches on a path."""
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.cli import kernel_check
+
+    _kernels.reset_launch_counts()
+    report = kernel_check.run(device=DEVICE, json_path=tmp / "kernel_check.json")
+    launches = _kernels.launch_counts()
+    bad = {k: c for k, c in {**report["checks"], **report["port_checks"]}.items()
+           if not c["ok"]}
+    spread = report["port_checks"]["fused_bwd_dq_atomic_spread_rel"]["value"]
+    log(f"[kernel_check] on {smi}: {len(report['checks'])} gates of the JAX tool and "
+        f"{len(report['port_checks'])} of the port, failed {sorted(bad)}; fused dQ spread "
+        f"over two launches {spread:.3e} of max |dQ|; launches {launches}")
+    log(f"[kernel_check] timing on {report['timing_card']}: {report['timing']}")
+    if bad or not report["ok"]:
+        raise AssertionError(f"[kernel_check] failed: {bad}")
+    if launches["dropout_mask"] < 3 or not launches["flash_bwd"]:
+        raise AssertionError(f"[kernel_check] the probe or the fused backward did not launch: "
+                             f"{launches}")
+    return launches
+
+
+def phase_multiproc_proof(smi: str, tmp):
+    """25. multiproc_proof: ``cli.multiproc_proof`` on the card, the
+    single-process reference and then four gloo ranks as ``{dcn: 2, data:
+    2, model: 1}``: ``ok`` (the loss within 1e-5 of one process's, the
+    checkpoint written once and restored bit for bit on every rank, each
+    rank on its shard's rows).  Returns the five processes' launches."""
+    from imagined_speech_translation_tpu_torch.cli import multiproc_proof
+
+    t0 = time.perf_counter()
+    r = multiproc_proof.orchestrate(tmp / "multiproc_proof", device=DEVICE)
+    log(f"[multiproc_proof] on {smi}: ok {r['ok']}, {r['process_count']} ranks, mesh "
+        f"{r['mesh_shape']}, backend {r['backend']}, loss {r['loss_multiprocess']:.7f} against "
+        f"{r['loss_singleprocess']:.7f} (delta {r['loss_delta']:.3e}, bound "
+        f"{r['loss_bound']:.3e}), checkpoint round trip {r['checkpoint_roundtrip_ok']}, "
+        f"written once {r['checkpoint_written_once']}, rows {r['rows_by_shard_ok']}, devices "
+        f"{[x['device'] for x in r['ranks']]}, {time.perf_counter() - t0:.1f} s, launches "
+        f"{r['launches']}")
+    if not r["ok"]:
+        raise AssertionError(f"[multiproc_proof] failed: {r}")
+    return r["launches"]
+
+
+def phase_demos(smi: str, tmp):
+    """26. demos on the card: ``examples.streaming_demo`` with ``--source
+    device`` (the board twin) and ``examples.product_journey_demo``, each
+    with random weights from seed 0: utterances decoded, IIR and flash
+    forward launched.  Returns both paths' launches."""
+    from imagined_speech_translation_tpu_torch import _kernels
+    from imagined_speech_translation_tpu_torch.examples import (
+        product_journey_demo,
+        streaming_demo,
+    )
+
+    out = {}
+    _kernels.reset_launch_counts()
+    r = streaming_demo.run(source="device", device=DEVICE)
+    out["streaming_demo"] = _kernels.launch_counts()
+    log(f"[demos] streaming_demo --source device on {smi}: {len(r['utterances'])} utterances "
+        f"from {len(r['chunks'])} chunks of the board, latency {r['latency']}, launches "
+        f"{out['streaming_demo']}")
+    if not r["utterances"]:
+        raise AssertionError("[demos] the streaming demo decoded nothing")
+
+    _kernels.reset_launch_counts()
+    transcript = tmp / "journey.txt"
+    rc = product_journey_demo.main(["--device", DEVICE, "--workdir", str(tmp / "journey"),
+                                    "--transcript", str(transcript)])
+    out["product_journey_demo"] = _kernels.launch_counts()
+    lines = transcript.read_text().splitlines()
+    said = [ln for ln in lines if "utterance:" in ln]
+    log(f"[demos] product_journey_demo on {smi}: exit {rc}, {len(lines)} transcript lines, "
+        f"{len(said)} utterances, launches {out['product_journey_demo']}")
+    if rc != 0 or not said or "journey complete" not in lines[-1]:
+        raise AssertionError(f"[demos] the journey failed: exit {rc}, {lines[-3:]}")
+    for path, launches in out.items():
+        if not (launches["sosfilt"] and launches["flash_fwd"]):
+            raise AssertionError(f"[demos] {path} launched {launches}")
+    return out
 
 
 def beyond_one_ulp(a, b, top: float) -> float:
@@ -3717,23 +3920,20 @@ def phase_multi_device(smi: str, tmp):
     base = _train_argv(tmp)
     env = {"WANDB_MODE": "disabled"}
     one_dir, dp_dir = tmp / "dp_one", tmp / "dp_two"
-    t0 = time.perf_counter()
-    (one,) = _wait_all([_spawn_train(tmp, "dp_one", base + [
-        "--out-dir", str(one_dir), "--set", "parallel.data_axis=1"], env)], 600)
-    t_one = time.perf_counter() - t0
     port = _free_port()
     rank_env = dict(env, IST_COORDINATOR=f"127.0.0.1:{port}",
                     IST_NUM_PROCESSES=str(DP_RANKS), IST_BACKEND="gloo")
-    log(f"[multi_device] one process: {t_one:.1f} s; two ranks with IST_COORDINATOR="
+    log(f"[multi_device] one process, and beside it two ranks with IST_COORDINATOR="
         f"127.0.0.1:{port} IST_NUM_PROCESSES={DP_RANKS} IST_BACKEND=gloo (NCCL refuses two "
         f"ranks on one card) WANDB_MODE=disabled, --set parallel.data_axis={DP_RANKS}")
     t0 = time.perf_counter()
-    ranks = _wait_all([_spawn_train(tmp, f"dp_rank{r}", base + [
-        "--out-dir", str(dp_dir), "--set", f"parallel.data_axis={DP_RANKS}"],
-        dict(rank_env, IST_PROCESS_ID=str(r))) for r in range(DP_RANKS)], 600)
-    t_two = time.perf_counter() - t0
-
-    log(f"[multi_device] the phase's processes: one {t_one:.1f} s, two ranks {t_two:.1f} s")
+    one, *ranks = _wait_all([_spawn_train(tmp, "dp_one", base + [
+        "--out-dir", str(one_dir), "--set", "parallel.data_axis=1"], env)] + [
+        _spawn_train(tmp, f"dp_rank{r}", base + [
+            "--out-dir", str(dp_dir), "--set", f"parallel.data_axis={DP_RANKS}"],
+            dict(rank_env, IST_PROCESS_ID=str(r))) for r in range(DP_RANKS)], 600)
+    log(f"[multi_device] one process and two ranks side by side, "
+        f"{time.perf_counter() - t0:.1f} s")
     dp_launches = _check_dp_run(smi, "multi_device", one, one_dir, ranks, dp_dir, micro)
 
     # the same in bf16 mixed precision: one process and two ranks, together
@@ -4400,7 +4600,7 @@ def run_trainer_and_server(smi: str):
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="trainer_smoke_", dir=build))
-    experiments = None
+    experiments = []
     try:
         trainer = timed(phase_trainer, smi, tmp)
         server = timed(phase_server, smi, tmp)
@@ -4408,17 +4608,20 @@ def run_trainer_and_server(smi: str):
         reproduce = timed(phase_reproduce, smi, tmp)
         timed(phase_feed, smi, tmp)
         torch.cuda.empty_cache()
-        experiments = start_experiments(smi, tmp)
+        experiments = [start_experiments(smi, tmp, names, f"{i + 1}")
+                       for i, names in enumerate(EXPERIMENT_GROUPS)]
         *multi, (one, one_dir), (one16, one16_dir) = timed(phase_multi_device, smi, tmp)
         torch.cuda.empty_cache()
         tp_cp = timed(phase_tp_cp, smi, tmp, one, one_dir, one16, one16_dir)
-        run, experiments = experiments, None
-        return (trainer, server, graft, reproduce, multi, tp_cp,
-                finish_experiments(run))
+        launches = {}
+        for run in experiments:
+            launches.update(finish_experiments(run))
+        return trainer, server, graft, reproduce, multi, tp_cp, launches
     finally:
-        if experiments is not None and experiments[0].poll() is None:
-            experiments[0].kill()
-            experiments[0].wait()
+        for proc, *_ in experiments:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -4462,6 +4665,21 @@ def summary(checks, launches_by_path, mapping_checks):
     return {"kernels": out}
 
 
+def scratch_dir():
+    """A new scratch directory under ``build/``, removed when the script
+    exits."""
+    import atexit
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    path = Path(tempfile.mkdtemp(prefix="smoke_", dir=build))
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    return path
+
+
 def timed(phase, *args):
     """``phase(*args)``, with its seconds logged."""
     t0 = time.perf_counter()
@@ -4480,6 +4698,8 @@ def main() -> int:
     for phase in (phase_train_kernels, phase_split_kernels):
         for name, rows in timed(phase).items():
             checks.setdefault(name, []).extend(rows)
+    kernel_check_launches = timed(phase_kernel_check, smi, scratch_dir())
+    torch.cuda.empty_cache()
     decode_fn, serve_launches, ctx = timed(phase_slice, smi)
     timed(phase_card_vs_cpu, ctx)
     timed(phase_serving, decode_fn, ctx["cfg"].data.n_timepoints)
@@ -4496,7 +4716,7 @@ def main() -> int:
     profilers = timed(phase_profilers, smi)
     torch.cuda.empty_cache()
     (trainer_launches, server_launches, graft_launches, reproduce_launches, multi,
-     tp_cp, (proof_launches, curve_launches, sweep_launches)) = run_trainer_and_server(smi)
+     tp_cp, experiments) = run_trainer_and_server(smi)
     mapping_checks, dp_launches, dp_bf16_launches, serving_dp_launches = multi
     tp_launches, tp_bf16_launches, cp_launches = tp_cp
     features_launches = timed(phase_features, smi)
@@ -4521,9 +4741,8 @@ def main() -> int:
                                     "uplink": uplink_launches,
                                     "ablation_serving": ablation_serving,
                                     "ablation_training": ablation_training,
-                                    "train_proof": proof_launches,
-                                    "accum_curve": curve_launches,
-                                    "ablation_sweep": sweep_launches, **profilers},
+                                    "kernel_check": kernel_check_launches,
+                                    **experiments, **profilers},
                                mapping_checks)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

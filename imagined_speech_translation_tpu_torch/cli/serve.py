@@ -49,6 +49,7 @@ from ..models import EEGDecodingModel, build_model, fold_batch_norm
 from ..parallel import make_mesh
 from ..parallel.mesh import Mesh, split_batch
 from ..utils.cache import enable_persistent_cache
+from ..utils.memory import return_freed_buffers
 
 logger = logging.getLogger(__name__)
 
@@ -75,7 +76,14 @@ def build_decode_fn(cfg: Config, tokenizer, region_spec, model: EEGDecodingModel
     model sits on each of the mesh's devices (a device may repeat); a batch
     splits into contiguous rows, one shard a replica, each shard runs on its
     replica's stream, and the ids come back in order.  ``N`` must then be a
-    multiple of the shard count."""
+    multiple of the shard count.
+
+    A process that decodes on a card takes the serving memory policy
+    (``utils.memory.return_freed_buffers``): freed host buffers of 128 KiB
+    and more go back to the system.  A decode on the CPU keeps glibc's
+    defaults: its activations come from the same heap, and mapping each
+    of them anew makes its latency drift (``cli.streaming_soak`` on the
+    CPU, several processes at once)."""
     if (mesh is None) == (device is None):
         raise ValueError("build_decode_fn takes a device or a serving mesh, one of them")
     if mesh is not None and mesh.over_ranks:
@@ -90,6 +98,8 @@ def build_decode_fn(cfg: Config, tokenizer, region_spec, model: EEGDecodingModel
     if compute_dtype is not None:
         model = model.to(compute_dtype)
     devices = [device] if mesh is None else mesh.devices
+    if any(torch.device(d).type == "cuda" for d in devices):
+        return_freed_buffers()
     replicas = [
         _replica(cfg, tokenizer, region_spec, model if i == 0 else copy.deepcopy(model),
                  torch.device(d), compute_dtype, wire, own_stream=mesh is not None)

@@ -94,10 +94,14 @@ def test_port_imports_nothing_of_the_jax_package():
         "experiments = {port.__name__ + '.cli.' + m for m in\n"
         "               ('train_proof', 'ablation_sweep', 'accum_curve_check',\n"
         "                'train_profile', 'train_bench', 'encoder_profile', 'beam_profile',\n"
-        "                'decode_profile')}\n"
+        "                'decode_profile', 'streaming_soak', 'kernel_check',\n"
+        "                'multiproc_proof')}\n"
+        "experiments |= {port.__name__ + '.examples.' + m for m in\n"
+        "                ('streaming_demo', 'product_journey_demo', 'device_page_demo')}\n"
         "assert experiments <= set(names), experiments - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'optax', 'imagined_speech_translation_tpu', 'tools')]\n"
+        "       ('jax', 'flax', 'optax', 'imagined_speech_translation_tpu', 'tools',\n"
+        "        'examples')]\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
